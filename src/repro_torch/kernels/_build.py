@@ -5,12 +5,14 @@ plain C interface (no PyTorch headers), so one ``nvcc`` call per source
 takes seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/lib<name>_<hash>.so <name>.cu
+         -Xcompiler -fPIC -I kernels/include -o build/kernels/lib<name>_<hash>.so <name>.cu
 
-The library lands in ``build/kernels/`` at the root of the checkout, named
-by a hash of its source, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  ``build_all()`` starts every ``nvcc`` at once and
-waits for all of them.  A missing ``nvcc`` or a failed build raises.
+``kernels/include/`` holds what every source shares.  The library lands in
+``build/kernels/`` at the root of the checkout, named by a hash of its
+source and the shared headers, so an edit to either is rebuilt and an
+unchanged kernel is loaded as it is.  ``build_all()`` starts every
+``nvcc`` at once and waits for all of them.  A missing ``nvcc`` or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -53,13 +56,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = source_path(name).read_bytes()
+    src = source_path(name).read_bytes() + b"".join(h.read_bytes() for h in sorted(INCLUDE_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(source_path(name))]
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out), str(source_path(name))]
 
 
 def _start(name: str) -> Tuple[Path, subprocess.Popen | None, Path]:
@@ -104,6 +107,43 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name]
     return lib
+
+
+def run_on(what: str, device, plain: Callable, kernel: Callable):
+    """Every wrapper's device rule: a CPU tensor takes the plain version, a
+    CUDA tensor launches the kernel (which raises where it cannot launch),
+    any other device raises.  There is no fallback from kernel to plain."""
+    if device.type == "cpu":
+        return plain()
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda (kernel) or cpu (plain), not {device}")
+    return kernel()
+
+
+_bound: Dict[str, ctypes.CDLL] = {}
+
+
+def bind(name: str, signatures: Dict[str, Tuple[object, list]]) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built if need be, with its C entry points
+    typed once: ``signatures`` maps a symbol to (restype, argtypes)."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        for symbol, (restype, argtypes) in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.restype, fn.argtypes = restype, argtypes
+        _bound[name] = lib
+    return lib
+
+
+def call(lib: ctypes.CDLL, prefix: str, entry: str, device, *args) -> None:
+    """Call ``entry`` with ``args`` and ``device``'s current CUDA stream as
+    its last argument; raise on a nonzero status (see ``check``)."""
+    import torch
+
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, prefix, status)
 
 
 def check(lib: ctypes.CDLL, prefix: str, status: int) -> None:

@@ -27,29 +27,17 @@
 // The chunk loads are 16-byte loads, coalesced over D, a thread's loads all
 // in flight before its stores; the products run on the FMA units.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <atomic>
-#include <mutex>
+#include "kernel_common.cuh"
 
 namespace {
 
-constexpr int MAX_DEVICES = 64;  // devices whose shared-memory limit is cached
+using kernel_common::to_f32;
+using kernel_common::from_f32;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int CH = 64;  // tokens per chunk (two per lane in the softmax step)
 constexpr float M_INIT = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 size_t smem_bytes(int G, int D) {
     return sizeof(float) * ((size_t)G * D          // Q rows
@@ -200,25 +188,9 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, con
            cudaStream_t stream) {
     const size_t smem = smem_bytes(G, D);
     auto kern = paged_decode_kernel<T, D>;
-    // The shared-memory limit (it grows with G) is raised per device only
-    // when a launch needs more than was granted before, not on every launch
-    // (it is a driver call).
-    static std::atomic<size_t> granted[MAX_DEVICES];
-    static std::mutex raising;  // the limit only grows, even under concurrent launches
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    static kernel_common::SmemGrant grant;  // the size grows with G
+    cudaError_t e = grant.ensure(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    if (dev >= MAX_DEVICES) {
-        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    } else if (granted[dev].load(std::memory_order_acquire) < smem) {
-        std::lock_guard<std::mutex> hold(raising);
-        if (granted[dev].load(std::memory_order_relaxed) < smem) {
-            e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
-            granted[dev].store(smem, std::memory_order_release);
-        }
-    }
     dim3 grid(KVH, B);
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),

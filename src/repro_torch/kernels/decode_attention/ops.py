@@ -49,11 +49,8 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len):
     kv_len (B,) int32 -> (B, H, D) in q's dtype.  Slots at or past kv_len
     are masked; a row with kv_len = 0 gives zeros."""
     _check(q, k_pages, v_pages, block_tables, kv_len)
-    if q.device.type == "cpu":
-        return paged_decode_ref(q, k_pages, v_pages, block_tables, kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode runs on cuda (kernel) or cpu (plain), not {q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, kv_len)
+    return _build.run_on("paged_decode", q.device, lambda: paged_decode_ref(q, k_pages, v_pages, block_tables, kv_len),
+                         lambda: _launch(q, k_pages, v_pages, block_tables, kv_len))
 
 
 def _launch(q, k_pages, v_pages, block_tables, kv_len):
@@ -70,41 +67,29 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
             raise ValueError(f"{name} must be contiguous")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("k/v pages must start on 16 bytes (the kernel gathers 16-byte loads)")
-    lib = _bind()
+    lib = _build.bind("decode_attention", _SIGNATURES)
     if lib.paged_decode_smem_bytes(G, D) > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D} needs more shared memory than one block has")
     o = torch.empty_like(q)
     if B == 0:
         return o
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.paged_decode_fwd(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-            B, KVH, G, D, page, NB, float(D**-0.5), stream)
-    _build.check(lib, "paged_decode", status)
+    _build.call(lib, "paged_decode", "paged_decode_fwd", q.device,
+                DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+                B, KVH, G, D, page, NB, float(D**-0.5))
     launches += 1
     return o
 
 
-_lib = None
-
-
-def _bind():
-    global _lib
-    if _lib is None:
-        lib = _build.load("decode_attention")
-        lib.paged_decode_fwd.restype = ctypes.c_int
-        lib.paged_decode_fwd.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
-        lib.paged_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        _lib = lib
-    return _lib
+_SIGNATURES = {
+    "paged_decode_fwd": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
+    ]),
+    "paged_decode_smem_bytes": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+}
 
 
 __all__ = ["paged_decode", "paged_decode_ref"]

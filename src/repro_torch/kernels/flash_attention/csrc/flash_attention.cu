@@ -28,15 +28,12 @@
 // the FMA units, not the tensor cores: wgmma, TMA and a producer warp are
 // later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "kernel_common.cuh"
 
 namespace {
 
-constexpr int MAX_DEVICES = 64;  // devices whose shared-memory limit is cached
+using kernel_common::to_f32;
+using kernel_common::from_f32;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
@@ -46,14 +43,6 @@ constexpr int THREADS = TX * TY;
 constexpr int RM = BQ / TY;   // query rows per thread
 constexpr int CN = BK / TX;   // key columns per thread
 constexpr float M_INIT = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 // 4 bytes of padding per shared-memory row keeps the row stride an odd
 // number of 32-bit words, so threads reading one column of different rows
@@ -238,17 +227,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
            cudaStream_t stream) {
     const size_t smem = smem_bytes<T, D>();
     auto kern = flash_fwd_kernel<T, D>;
-    // The shared-memory limit is raised once per device for each
-    // instantiation, not on every launch (it is a driver call).
-    static std::atomic<bool> raised[MAX_DEVICES];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    static kernel_common::SmemGrant grant;  // one size per instantiation
+    cudaError_t e = grant.ensure(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    if (dev >= MAX_DEVICES || !raised[dev].load(std::memory_order_acquire)) {
-        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        if (dev < MAX_DEVICES) raised[dev].store(true, std::memory_order_release);
-    }
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

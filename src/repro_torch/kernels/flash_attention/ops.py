@@ -55,11 +55,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     bk = min(block_k, max(8, Skv))
     if not causal and Skv % bk:
         raise ValueError("non-causal flash requires Skv % block_k == 0 (pad keys are unmaskable)")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
-    return _launch(q, k, v, causal, q_offset)
+    return _build.run_on("flash_attention", q.device, lambda: flash_attention_plain(q, k, v, causal, q_offset),
+                         lambda: _launch(q, k, v, causal, q_offset))
 
 
 def _launch(q, k, v, causal: bool, q_offset: int):
@@ -76,35 +73,24 @@ def _launch(q, k, v, causal: bool, q_offset: int):
             raise ValueError(f"{name} must start on 16 bytes with batch/sequence strides of "
                              f"whole 16-byte units; strides {t.stride()}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = _bind()
+    lib = _build.bind("flash_attention", _SIGNATURES)
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                                    v.stride(0), v.stride(1), o.stride(0), o.stride(1))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.flash_attention_fwd(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, H, KVH, Sq, Skv, D, strides, int(causal), int(q_offset), float(D**-0.5), stream)
-    _build.check(lib, "flash_attention", status)
+    _build.call(lib, "flash_attention", "flash_attention_fwd", q.device,
+                DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B, H, KVH, Sq, Skv, D, strides, int(causal), int(q_offset), float(D**-0.5))
     launches += 1
     return o
 
 
-_lib = None
-
-
-def _bind():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        lib.flash_attention_fwd.restype = ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
-        _lib = lib
-    return _lib
+_SIGNATURES = {
+    "flash_attention_fwd": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p,
+    ]),
+}
 
 
 __all__ = ["flash_attention", "attention_ref", "flash_attention_plain"]

@@ -1,0 +1,55 @@
+// Helpers shared by every kernel source under kernels/*/csrc/.
+//
+// _build.py passes this directory to nvcc with -I and hashes this file
+// with each source, so an edit here rebuilds every kernel.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <mutex>
+
+namespace kernel_common {
+
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// The dynamic shared-memory limit one kernel instantiation has been granted
+// on each device.  ``ensure`` raises it only when a launch needs more than
+// was granted before, so the driver call is made once per device and size,
+// not on every launch; the grant only grows, even under concurrent launches.
+// Keep one as a function-local static beside the kernel it serves.
+class SmemGrant {
+  public:
+    template <typename Kernel>
+    cudaError_t ensure(Kernel kern, size_t bytes) {
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return e;
+        if (dev >= MAX_DEVICES)  // not cached: raise on every launch
+            return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (granted_[dev].load(std::memory_order_acquire) >= bytes) return cudaSuccess;
+        std::lock_guard<std::mutex> hold(raising_);
+        if (granted_[dev].load(std::memory_order_relaxed) < bytes) {
+            e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            if (e != cudaSuccess) return e;
+            granted_[dev].store(bytes, std::memory_order_release);
+        }
+        return cudaSuccess;
+    }
+
+  private:
+    static constexpr int MAX_DEVICES = 64;  // devices whose grant is cached
+    std::atomic<size_t> granted_[MAX_DEVICES] = {};
+    std::mutex raising_;
+};
+
+}  // namespace kernel_common

@@ -53,13 +53,13 @@ def resolve_device(device) -> torch.device:
 
 
 def greedy_decode(cfg, params, prompt: List[int], n_tokens: int, device,
-                  plain_attention: bool = False, inputs: Optional[List[int]] = None):
+                  plain_kernels: bool = False, inputs: Optional[List[int]] = None):
     """Prefill ``prompt`` and decode ``n_tokens`` greedily.  With ``inputs``,
     step i is fed ``inputs[i]`` instead of the previous argmax (teacher
     forcing).  Returns (argmax tokens, the tokens fed, per-step logits
     (n_tokens, V) as float32 on the device)."""
-    prefill = api.prefill_fn(cfg, plain_attention)
-    decode = api.decode_fn(cfg, plain_attention)
+    prefill = api.prefill_fn(cfg, plain_kernels)
+    decode = api.decode_fn(cfg, plain_kernels)
     with torch.inference_mode():
         toks = torch.tensor(prompt, dtype=torch.int64, device=device)[None, :]
         cache = api.init_cache(cfg, 1, len(prompt) + n_tokens, device)

@@ -1,11 +1,11 @@
-"""Transformer layers of the dense decoders: RMSNorm, RoPE, GQA attention
-and the SwiGLU MLP.
+"""Transformer layers of the dense decoders and of the hybrid's shared
+block: RMSNorm, RoPE, GQA attention and the SwiGLU MLP.
 
 Parameters arrive as dict trees built from ``build_*_template``.  Dtypes
 follow the reference: bf16 storage, f32 for norms, RoPE, softmax and
 accumulation.  Attention goes through the port's two kernels: the flash
 kernel for prefill and the training forward, the paged decode kernel for
-single-token decode; ``plain_attention=True`` calls their plain PyTorch
+single-token decode; ``plain_kernels=True`` calls their plain PyTorch
 versions instead (on any device), which is how a run on the card is held
 against the plain path.  The reference's direct/chunked split at
 ``ATTN_CHUNK`` has no counterpart: both kernels are online-softmax loops.
@@ -104,7 +104,7 @@ def _decode_over_cache(q, ck, cv, index, plain: bool):
 
 
 def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
-                  q_offset: int = 0, plain_attention: bool = False,
+                  q_offset: int = 0, plain_kernels: bool = False,
                   index: Optional[Tuple] = None):
     """x (B,S,D), positions (B,S) = q_offset + arange(S) in every row.
 
@@ -133,7 +133,7 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     cos, sin = rope_tables(positions, Dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    flash = flash_attention_plain if plain_attention else flash_attention
+    flash = flash_attention_plain if plain_kernels else flash_attention
 
     if cache is None:
         out = flash(q, k, v, causal=cfg.causal, q_offset=q_offset)
@@ -147,7 +147,7 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         if S == 1:  # kv_len = pos + 1 masks exactly what causality would
             if index is None:
                 index = decode_index(B, ck.shape[1], pos + 1, x.device)
-            out = _decode_over_cache(q, ck, cv, index, plain_attention)
+            out = _decode_over_cache(q, ck, cv, index, plain_kernels)
         else:
             out = flash(q, ck[:, :pos + S], cv[:, :pos + S], causal=cfg.causal, q_offset=pos)
         new_cache = (ck, cv)

@@ -1,9 +1,9 @@
-"""Decoder-LM assembly, dense family: one forward covering train (no
-cache), prefill (cache fill at a reused-prefix offset) and decode (single
-step).  Layers are stacked on a leading L axis, as in the reference, and
-driven by a Python loop in place of ``lax.scan``.
+"""Decoder-LM assembly for the dense, rwkv6 and hybrid families: one
+forward covering train (no cache), prefill (cache fill at a reused-prefix
+offset) and decode (single step).  Layers are stacked on a leading L axis,
+as in the reference, and driven by a Python loop in place of ``lax.scan``.
 
-Only the dense family is ported so far; the other families raise
+The moe, mla and encdec families are not ported yet; they raise
 ``NotImplementedError`` naming their item in ROADMAP.md.
 """
 
@@ -16,26 +16,39 @@ import torch
 from .common import Spec, tree_init
 from .layers import (PAGE, build_gqa_template, build_mlp_template, decode_index, gqa_attention,
                      rms_norm, swiglu_mlp)
+from .ssm import (build_mamba2_template, build_rwkv6_template, mamba2_init_state, mamba2_mix,
+                  mamba2_state_specs, rwkv6_channel_mix, rwkv6_init_state, rwkv6_state_specs,
+                  rwkv6_time_mix)
 
+PORTED = ("dense", "rwkv6", "hybrid")
 _NOT_PORTED = {
     "moe": "ROADMAP.md queue 1 item 3 (MoE + MLA)",
     "mla": "ROADMAP.md queue 1 item 3 (MoE + MLA)",
-    "rwkv6": "ROADMAP.md queue 1 item 4 (RWKV6)",
-    "hybrid": "ROADMAP.md queue 1 item 5 (Mamba-2 hybrid)",
     "encdec": "ROADMAP.md queue 1 item 6 (Whisper enc-dec)",
 }
 
 
-def require_dense(cfg) -> None:
+def require_ported(cfg) -> None:
     kind = "mla" if cfg.attention == "mla" else cfg.family
-    if kind != "dense":
+    if kind not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {kind} family is not ported to PyTorch yet; see {_NOT_PORTED.get(kind, 'ROADMAP.md queue 1')}")
 
 
 # ------------------------------------------------------------- templates
 def build_block_template(cfg) -> Dict:
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family == "rwkv6":
+        return {
+            "ln1": Spec((cfg.d_model,), init="ones"),
+            "ln2": Spec((cfg.d_model,), init="ones"),
+            **build_rwkv6_template(cfg),
+        }
+    if cfg.family == "hybrid":
+        return {
+            "norm": Spec((cfg.d_model,), init="ones"),
+            "mamba": build_mamba2_template(cfg),
+        }
     return {
         "attn_norm": Spec((cfg.d_model,), init="ones"),
         "attn": build_gqa_template(cfg),
@@ -52,12 +65,21 @@ def _stack(template, L: int):
 
 def build_lm_template(cfg) -> Dict:
     D, V = cfg.d_model, cfg.vocab_size
-    return {
+    t = {
         "embed": Spec((V, D), scale=1.0),
         "blocks": _stack(build_block_template(cfg), cfg.n_layers),
         "final_norm": Spec((D,), init="ones"),
         "lm_head": Spec((D, V)),
     }
+    if cfg.family == "hybrid":
+        # one shared transformer block, reused at every site (Zamba2)
+        t["shared_attn"] = {
+            "attn_norm": Spec((D,), init="ones"),
+            "attn": build_gqa_template(cfg),
+            "mlp_norm": Spec((D,), init="ones"),
+            "mlp": build_mlp_template(cfg),
+        }
+    return t
 
 
 def lm_init(cfg, seed: int = 0, device="cuda"):
@@ -65,6 +87,14 @@ def lm_init(cfg, seed: int = 0, device="cuda"):
 
 
 # ----------------------------------------------------------------- caches
+def n_attn_sites(cfg) -> int:
+    """Attention layers that keep a k/v cache: every layer of a dense model,
+    ⌈L / attn_every⌉ shared-block sites of a hybrid."""
+    if cfg.family != "hybrid":
+        return cfg.n_layers
+    return (cfg.n_layers + cfg.attn_every - 1) // cfg.attn_every
+
+
 def cache_len(max_seq: int) -> int:
     """Cache slots for ``max_seq`` tokens, rounded up to a whole number of
     decode pages: decode views each layer's cache as PAGE-token pages.  The
@@ -73,10 +103,16 @@ def cache_len(max_seq: int) -> int:
 
 
 def cache_specs(cfg, batch: int, max_seq: int) -> Dict:
-    """Shapes and dtype of the serve-time cache (the object the LSM store
-    persists block-wise): bf16 k/v of shape (L, B, S, KVH, Dh)."""
-    require_dense(cfg)
-    shape = (cfg.n_layers, batch, cache_len(max_seq), cfg.n_kv_heads, cfg.d_head)
+    """Shapes and dtypes of the serve-time cache (the object the LSM store
+    persists block-wise): bf16 k/v of shape (sites, B, S, KVH, Dh) for the
+    attention layers, and the recurrent states of rwkv6 and hybrid."""
+    require_ported(cfg)
+    if cfg.family == "rwkv6":
+        return rwkv6_state_specs(cfg, batch)
+    shape = (n_attn_sites(cfg), batch, cache_len(max_seq), cfg.n_kv_heads, cfg.d_head)
+    if cfg.family == "hybrid":
+        return {**mamba2_state_specs(cfg, batch),
+                "attn_k": (shape, torch.bfloat16), "attn_v": (shape, torch.bfloat16)}
     return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
 
 
@@ -93,29 +129,77 @@ def embed_tokens(embed, tokens):
     return embed[tokens.clamp(0, embed.shape[0] - 1)]
 
 
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _store(cache, i: int, **states) -> None:
+    """Write layer ``i``'s new states into the cache, in place."""
+    for name, t in states.items():
+        cache[name][i].copy_(t)
+
+
 def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
-               plain_attention: bool = False):
+               plain_kernels: bool = False):
     """tokens (B,S) int.  ``cache=None`` => training forward.  Otherwise the
     cache is consumed and updated in place at offset ``pos`` (an int).
-    Returns (logits (B,S,V), cache, aux)."""
-    require_dense(cfg)
+    ``plain_kernels`` runs every kernel's plain version instead of the
+    kernel.  Returns (logits (B,S,V), cache, aux)."""
+    require_ported(cfg)
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
-    positions = (pos + torch.arange(S, dtype=torch.int32, device=x.device))[None, :].expand(B, S)
-    index = None
-    if cache is not None and S == 1:
-        index = decode_index(B, cache["k"].shape[2], pos + 1, x.device)
+    dev = x.device
+    positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        bp = {"attn": {k: t[i] for k, t in blocks["attn"].items()},
-              "mlp": {k: t[i] for k, t in blocks["mlp"].items()}}
-        layer_cache = None if cache is None else (cache["k"][i], cache["v"][i], pos)
-        h = rms_norm(x, blocks["attn_norm"][i])
-        h, _ = gqa_attention(bp["attn"], cfg, h, positions, layer_cache,
-                             q_offset=pos, plain_attention=plain_attention, index=index)
-        x = x + h
-        h = rms_norm(x, blocks["mlp_norm"][i])
-        x = x + swiglu_mlp(bp["mlp"], h)
+
+    if cfg.family == "rwkv6":
+        live = cache if cache is not None else rwkv6_init_state(cfg, B, dev)
+        for i in range(cfg.n_layers):
+            bp = _layer(blocks, i)
+            h, (tshift, wkv) = rwkv6_time_mix(bp["time"], cfg, rms_norm(x, bp["ln1"]),
+                                              (live["time_shift"][i], live["wkv"][i]), plain_kernels)
+            x = x + h
+            h, cshift = rwkv6_channel_mix(bp["chan"], cfg, rms_norm(x, bp["ln2"]), live["chan_shift"][i])
+            x = x + h
+            if cache is not None:
+                _store(cache, i, time_shift=tshift, wkv=wkv, chan_shift=cshift)
+
+    elif cfg.family == "hybrid":
+        live = cache if cache is not None else mamba2_init_state(cfg, B, dev)
+        sp = params["shared_attn"]
+        index = None
+        if cache is not None and S == 1:
+            index = decode_index(B, cache["attn_k"].shape[2], pos + 1, dev)
+        for i in range(cfg.n_layers):
+            bp = _layer(blocks, i)
+            h, (conv, ssm) = mamba2_mix(bp["mamba"], cfg, rms_norm(x, bp["norm"]),
+                                        (live["conv"][i], live["ssm"][i]), plain_kernels)
+            x = x + h
+            if cache is not None:
+                _store(cache, i, conv=conv, ssm=ssm)
+            if i % cfg.attn_every == 0:  # shared attention site i // attn_every
+                site = i // cfg.attn_every
+                site_cache = None if cache is None else (cache["attn_k"][site], cache["attn_v"][site], pos)
+                h, _ = gqa_attention(sp["attn"], cfg, rms_norm(x, sp["attn_norm"]), positions, site_cache,
+                                     q_offset=pos, plain_kernels=plain_kernels, index=index)
+                x = x + h
+                x = x + swiglu_mlp(sp["mlp"], rms_norm(x, sp["mlp_norm"]))
+
+    else:
+        index = None
+        if cache is not None and S == 1:
+            index = decode_index(B, cache["k"].shape[2], pos + 1, dev)
+        for i in range(cfg.n_layers):
+            bp = _layer(blocks, i)
+            layer_cache = None if cache is None else (cache["k"][i], cache["v"][i], pos)
+            h, _ = gqa_attention(bp["attn"], cfg, rms_norm(x, bp["attn_norm"]), positions, layer_cache,
+                                 q_offset=pos, plain_kernels=plain_kernels, index=index)
+            x = x + h
+            x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+
     x = rms_norm(x, params["final_norm"])
     logits = torch.matmul(x, params["lm_head"])
-    return logits, cache, {"aux_loss": 0.0}  # dense: no auxiliary loss
+    return logits, cache, {"aux_loss": 0.0}  # no family ported so far has an auxiliary loss

@@ -12,11 +12,16 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.mamba2 import ssd, ssd_chunked, ssd_chunked_plain
+from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
 
 # (atol, rtol).  bf16: kernel and plain version both round an f32 result to
 # bf16, so they differ by at most one bf16 step (2^-7 of the value); two are
 # allowed, and the atol covers outputs near zero.  f32: summation order.
 TOL = {torch.bfloat16: (1e-4, 2.0**-6), torch.float32: (1e-4, 1e-4)}
+# The scans: the reference kernel tests' own tolerances (tests/test_kernels.py:104,141);
+# kernel and plain version do the same f32 operations, the sums in another order.
+WKV_TOL, SSD_TOL = 3e-4, 4e-4
 
 
 @pytest.fixture
@@ -91,3 +96,77 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode(torch.zeros(1, 4, 256, dtype=torch.bfloat16, device=dev)[:, :, ::2], kp, kp, tables, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,N,chunk", [(1, 128, 32, 64, 16), (2, 77, 4, 32, 16), (1, 40, 3, 16, 64)])
+def test_wkv_kernel_matches_plain(dev, dtype, B, S, H, N, chunk):
+    """Model layout, the model's decay (the chunk-16 clamp acts), a carried state."""
+    g = torch.Generator(device=dev).manual_seed(S + N)
+    r, k, v = (_randn(g, (B, S, H, N), dtype, dev) for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(g, (B, S, H, N), torch.float32, dev)))
+    u, s0 = _randn(g, (H, N), torch.float32, dev) * 0.3, _randn(g, (B, H, N, N), torch.float32, dev) * 0.5
+    reset_launch_counts()
+    y, s = wkv_model(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv"] == 1 and y.dtype == torch.float32
+    yp, sp = wkv_chunked_plain(r, k, v, w, u, s0, chunk)
+    torch.testing.assert_close(y, yp, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(s, sp, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+def test_wkv_kernel_reads_the_op_layout(dev):
+    """(B, H, S, N) at chunk 32, through strides."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    r, k, v = (_randn(g, (2, 4, 100, 64), torch.float32, dev) for _ in range(3))
+    w = 0.45 + 0.5 * torch.sigmoid(_randn(g, (2, 4, 100, 64), torch.float32, dev))
+    u, s0 = _randn(g, (4, 64), torch.float32, dev) * 0.3, _randn(g, (2, 4, 64, 64), torch.float32, dev) * 0.5
+    y, s = wkv(r, k, v, w, u, s0, chunk=32)
+    yp, sp = wkv_chunked_plain(*(t.transpose(1, 2) for t in (r, k, v, w)), u, s0, 32)
+    torch.testing.assert_close(y, yp.transpose(1, 2), atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(s, sp, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(1, 128, 64, 64, 64, 256), (2, 333, 3, 32, 16, 256),
+                                             (1, 100, 2, 64, 64, 64), (1, 50, 4, 8, 16, 16)])
+def test_ssd_kernel_matches_plain(dev, dtype, B, S, H, P, N, chunk):
+    g = torch.Generator(device=dev).manual_seed(S + P)
+    x = _randn(g, (B, S, H, P), dtype, dev)
+    Bm, Cm = _randn(g, (B, S, N), dtype, dev), _randn(g, (B, S, N), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(g, (B, S, H), torch.float32, dev))
+    a = torch.exp(-dt * torch.exp(_randn(g, (H,), torch.float32, dev) * 0.3))
+    s0 = _randn(g, (B, H, P, N), torch.float32, dev) * 0.5
+    reset_launch_counts()
+    y, s = ssd_chunked(x, Bm, Cm, a, dt, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd"] == 1 and y.dtype == torch.float32
+    yp, sp = ssd_chunked_plain(x, Bm, Cm, a, dt, s0, chunk)
+    torch.testing.assert_close(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(s, sp, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_ssd_kernel_reads_the_models_views_in_place(dev):
+    """x, B and C as slices of one convolution output, as mamba2_mix hands them."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, H, P, N = 1, 70, 4, 32, 16
+    xc = _randn(g, (B, S, H * P + 2 * N), torch.bfloat16, dev)
+    x, Bm, Cm = xc[..., :H * P].reshape(B, S, H, P), xc[..., H * P:H * P + N], xc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(_randn(g, (B, S, H), torch.float32, dev))
+    a, s0 = torch.exp(-dt), torch.zeros(B, H, P, N, device=dev)
+    y, s = ssd(x, Bm, Cm, a, dt, s0)
+    yp, sp = ssd_chunked_plain(x, Bm, Cm, a, dt, s0, 64)
+    torch.testing.assert_close(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(s, sp, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(dev):
+    z = torch.zeros(1, 8, 2, 128, device=dev)  # head size 128 > 64
+    with pytest.raises(ValueError, match="N <= 64"):
+        wkv_model(z, z, z, z + 1, torch.zeros(2, 128, device=dev), torch.zeros(1, 2, 128, 128, device=dev))
+    x = torch.zeros(1, 8, 2, 16, device=dev)
+    bc, ad = torch.zeros(1, 8, 8, device=dev), torch.zeros(1, 8, 2, device=dev)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        ssd_chunked(x, bc, bc, ad + 1, ad, torch.zeros(1, 2, 16, 8, device=dev), chunk=512)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd(torch.zeros(1, 8, 2, 32, device=dev)[..., ::2], bc, bc, ad + 1, ad, torch.zeros(1, 2, 16, 8, device=dev))

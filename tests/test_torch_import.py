@@ -31,11 +31,12 @@ def test_port_imports_and_prefills_with_jax_and_repro_blocked():
         import torch
         from repro_torch.configs import get_config
         from repro_torch.models import api
-        cfg = get_config("qwen3-14b", smoke=True)
-        params = api.init_params(cfg, 0, "cpu")
-        logits, cache = api.prefill_fn(cfg)(params, {"tokens": torch.arange(8)[None]},
-                                            api.init_cache(cfg, 1, 8, "cpu"), 0)
-        assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all())
+        for arch in ("qwen3-14b", "rwkv6-1.6b", "zamba2-1.2b"):
+            cfg = get_config(arch, smoke=True)
+            params = api.init_params(cfg, 0, "cpu")
+            logits, cache = api.prefill_fn(cfg)(params, {"tokens": torch.arange(8)[None]},
+                                                api.init_cache(cfg, 1, 8, "cpu"), 0)
+            assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all())
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -54,7 +55,7 @@ def test_no_module_of_the_port_names_jax_or_the_reference():
 
 
 def test_kernel_build_command_targets_hopper():
-    assert _build.kernel_names() == ["decode_attention", "flash_attention"]
+    assert _build.kernel_names() == ["decode_attention", "flash_attention", "mamba2", "rwkv6"]
     for name in _build.kernel_names():
         assert _build.source_path(name).exists()
         lib = _build.library_path(name)
@@ -62,6 +63,19 @@ def test_kernel_build_command_targets_hopper():
     flags = _build.NVCC_FLAGS
     assert flags[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert {"-O3", "-shared", "-std=c++17"} <= set(flags)
+
+
+def test_kernel_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """Every source includes kernels/include/kernel_common.cuh, so an edit
+    to that header must rename (and so rebuild) every library."""
+    assert (_build.INCLUDE_DIR / "kernel_common.cuh").exists()
+    for name in _build.kernel_names():
+        assert '#include "kernel_common.cuh"' in _build.source_path(name).read_text()
+    before = {n: _build.library_path(n) for n in _build.kernel_names()}
+    (tmp_path / "kernel_common.cuh").write_text((_build.INCLUDE_DIR / "kernel_common.cuh").read_text() + "// edit\n")
+    monkeypatch.setattr(_build, "INCLUDE_DIR", tmp_path)
+    after = {n: _build.library_path(n) for n in _build.kernel_names()}
+    assert all(before[n] != after[n] for n in before)
 
 
 def test_kernel_build_raises_without_a_toolkit():
@@ -82,9 +96,16 @@ def test_launch_counters_count_only_kernel_launches():
     from repro_torch.kernels.decode_attention import paged_decode
     from repro_torch.kernels.flash_attention import flash_attention
 
+    from repro_torch.kernels.mamba2 import ssd
+    from repro_torch.kernels.rwkv6 import wkv_model
+
     reset_launch_counts()
     q = torch.zeros(1, 4, 2, 16)
     flash_attention(q, q, q)
     paged_decode(torch.zeros(1, 2, 16), torch.zeros(2, 4, 2, 16), torch.zeros(2, 4, 2, 16),
                  torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
-    assert launch_counts() == {"flash": 0, "paged_decode": 0}  # CPU tensors take the plain versions
+    wkv_model(q, q, q, torch.ones(1, 4, 2, 16), torch.zeros(2, 16), torch.zeros(1, 2, 16, 16))
+    ssd(q, torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.ones(1, 4, 2), torch.zeros(1, 4, 2),
+        torch.zeros(1, 2, 16, 8))
+    # CPU tensors take the plain versions
+    assert launch_counts() == {"flash": 0, "paged_decode": 0, "wkv": 0, "ssd": 0}
