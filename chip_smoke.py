@@ -7,13 +7,14 @@ Phases, in order, one line each:
   1. device        card name and power limit (nvidia-smi), torch and CUDA versions
   2. build         compile every kernel from the sources in the checkout (nvcc)
   3. flash         flash-attention kernel vs its plain version on the card, bf16
-                   and f32, at the serve path's shape and zamba2's (H 32, KVH 32,
-                   D 64), a ragged-offset case over a strided cache slice, and a
-                   4096-token prefill; device times (CUDA-graph replay) of
-                   kernel, plain version and SDPA (yardstick only: the port
-                   never calls it)
+                   and f32, at the serve path's shape, zamba2's (H 32, KVH 32,
+                   D 64), olmoe's (H 16, KVH 16, D 128) and minicpm3's MLA
+                   prefill (H 40, q/k head dim 96, v head dim 64), ragged-offset
+                   cases over strided cache slices, and a 4096-token prefill;
+                   device times (CUDA-graph replay) of kernel, plain version
+                   and SDPA (yardstick only: the port never calls it)
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
-                   shape and zamba2's (kv_len 129..136, bf16 and f32), a batch
+                   shape, zamba2's and olmoe's (kv_len 129..136, bf16 and f32), a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
                    one kv_len = 0 row; the paged-pool staging check; times as
                    above
@@ -43,7 +44,22 @@ Phases, in order, one line each:
                    a torch.profiler pass over one prefill
  10. zamba2        the same for full-width zamba2-1.2b (ssd 38 and flash 7
                    per prefill, paged_decode 7 per token)
- 11. kernels       one JSON line describing the four kernels
+ 11. olmoe         the same for full-width olmoe-1b-7b, 64 experts top-8 (flash
+                   16 per prefill, paged_decode 16 per token), and the count of
+                   top-k routing choices that differ between the two paths
+ 12. minicpm3      the same for full-width minicpm3-4b, MLA (flash 62 per
+                   prefill at q/k head dim 96 and v head dim 64; decode is the
+                   absorbed plain-torch path, no launch)
+ 13. kv_codec      the int8 codec's entry points, quantize and dequantize, over
+                   the float16 KV blocks of one full-width qwen3-14b prefill
+                   (8 of 16 x 81920, as the serve hook hands them to the store)
+                   and a 16 x 17856 slab of full-width minicpm3-4b's latent
+                   cache (c and kr of 62 layers, a ragged channel edge), launch
+                   counters reset just before and read just after; both
+                   kernels held against their plain versions and the host codec
+                   (core/codec.py) there, on the reference kernel test's shapes,
+                   a zero channel and a 4096 x 8192 case; device times
+ 14. kernels       one JSON line describing the six kernels
 
 Every phase runs on every call.  Any failed phase raises and the exit code
 is nonzero.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -53,6 +69,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -178,10 +195,12 @@ def phase_build():
          kernels=",".join(f"{k}:{v:.2f}s" for k, v in per.items()), dir=_build.BUILD_DIR)
 
 
-def _flash_bound(B, Sq, Skv, H, KVH, D, q_offset, causal=True):
+def _flash_bound(B, Sq, Skv, H, KVH, D, q_offset, causal=True, Dv=None):
+    """q and k of head dim D, v and o of head dim Dv (D when not given), bf16."""
+    Dv = D if Dv is None else Dv
     pairs = sum(min(Skv, q_offset + i + 1) if causal else Skv for i in range(Sq))
-    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Skv * KVH * D)  # q, o, k, v in bf16
-    return bound_ms(nbytes, 4.0 * B * H * D * pairs)
+    nbytes = 2 * (B * Sq * H * (D + Dv) + B * Skv * KVH * (D + Dv))  # q, o, k, v
+    return bound_ms(nbytes, 2.0 * B * H * (D + Dv) * pairs)
 
 
 def phase_flash():
@@ -232,6 +251,39 @@ def phase_flash():
          plain_ms=f"{time_ms(lambda: flash_attention_plain(qz, kz, vz, True, 0), 50):.5f}",
          library_ms=f"{time_ms(lambda: F.scaled_dot_product_attention(qzt, kzt, vzt, is_causal=True), 200):.5f}",
          bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
+
+    # olmoe-1b-7b and minicpm3-4b (MLA): their 128-token prompts
+    for label, Hm, KVHm, Dm, Dvm in (("olmoe", 16, 16, 128, 128), ("minicpm3", 40, 40, 96, 64)):
+        qm, km, vm = rand(B, S, Hm, Dm), rand(B, S, KVHm, Dm), rand(B, S, KVHm, Dvm)
+        errm, sharem = assert_bf16(f"flash {label}", flash_attention(qm, km, vm, causal=True),
+                                   flash_attention_plain(qm, km, vm, True, 0))
+        errm32, _ = assert_close(f"flash {label} f32", flash_attention(qm.float(), km.float(), vm.float(), causal=True),
+                                 flash_attention_plain(qm.float(), km.float(), vm.float()), F32_TOL)
+        rec["max_abs_err"] = max(rec["max_abs_err"], errm)
+        qmt, kmt, vmt = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
+        boundm = _flash_bound(B, S, S, Hm, KVHm, Dm, 0, Dv=Dvm)
+        rec[label] = {"shape": f"B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} causal bf16", "max_abs_err": errm,
+                      "ms": time_ms(lambda: flash_attention(qm, km, vm, causal=True), 200),
+                      "plain_ms": time_ms(lambda: flash_attention_plain(qm, km, vm, True, 0), 50),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qmt, kmt, vmt, is_causal=True), 200),
+                      "bound_ms": boundm[0], "bound_by": boundm[1]}
+        line("flash", case=f"{label} B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} bf16", max_abs_err=f"{errm:.3e}",
+             tol=BF16_LIMIT, of_limit=f"{sharem:.3f}", f32_err=f"{errm32:.3e}", f32_tol=F32_TOL,
+             kernel_ms=f"{rec[label]['ms']:.5f}", plain_ms=f"{rec[label]['plain_ms']:.5f}",
+             library_ms=f"{rec[label]['library_ms']:.5f}", bound_ms=f"{boundm[0]:.5f}", bound_by=boundm[1])
+
+    # MLA's chained prefill: q/k 96, v 64 read from strided cache slices at an offset
+    Bm2, Sqm, offm, Smaxm = 2, 45, 83, 144
+    ckm, cvm = rand(Bm2, Smaxm, 40, 96), rand(Bm2, Smaxm, 40, 64)
+    qm2 = rand(Bm2, Sqm, 40, 96)
+    kk, vv = ckm[:, :offm + Sqm], cvm[:, :offm + Sqm]
+    errm2, sharem2 = assert_bf16("flash minicpm3 ragged", flash_attention(qm2, kk, vv, causal=True, q_offset=offm),
+                                 flash_attention_plain(qm2, kk, vv, True, offm))
+    errm2_32, _ = assert_close("flash minicpm3 ragged f32",
+                               flash_attention(qm2.float(), kk.float(), vv.float(), causal=True, q_offset=offm),
+                               flash_attention_plain(qm2.float(), kk.float(), vv.float(), True, offm), F32_TOL)
+    line("flash", case=f"minicpm3 ragged B{Bm2} Sq{Sqm} q_offset{offm} D96 Dv64 strided-cache", max_abs_err=f"{errm2:.3e}",
+         tol=BF16_LIMIT, of_limit=f"{sharem2:.3f}", f32_err=f"{errm2_32:.3e}", f32_tol=F32_TOL)
 
     # ragged offset over a strided cache slice, as a prefill at pos > 0 reads it
     B2, Sq2, off2, Smax = 2, 77, 51, 144
@@ -326,29 +378,33 @@ def phase_paged_decode():
          library_ms=f"{rec['library_ms']:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
          bound_by=rec["bound_by"])
 
-    # zamba2 path: the shared attention block's decode (H 32, KVH 32, G 1, D 64)
-    Hz, KVHz, Dz = 32, 32, 64
-    kpz, vpz = (rand(1, Smax, KVHz, Dz).view(NB, page, KVHz, Dz) for _ in range(2))
-    qz = rand(1, Hz, Dz)
-    errs = []
-    for n in range(129, 137):
-        lens = torch.tensor([n], dtype=torch.int32, device=dev)
-        errs.append(assert_bf16(f"paged_decode zamba2 kv_len {n}", paged_decode(qz, kpz, vpz, tables, lens),
-                                paged_decode_ref(qz, kpz, vpz, tables, lens)))
-    errz, sharez = (max(e) for e in zip(*errs))
-    rec["max_abs_err"] = max(rec["max_abs_err"], errz)
-    errz32, _ = assert_close("paged_decode zamba2 f32",
-                             paged_decode(qz.float(), kpz.float(), vpz.float(), tables, lens),
-                             paged_decode_ref(qz.float(), kpz.float(), vpz.float(), tables, lens), F32_TOL)
-    sq, sk, sv, _ = _dense_sdpa_inputs(qz, kpz, vpz, tables, lens)
-    sk, sv = sk[:, :, :136].contiguous(), sv[:, :, :136].contiguous()
-    boundz = _decode_bound(1, Hz, KVHz, Dz, 136, NB)
-    line("paged_decode", case="zamba2 B1 H32 KVH32 D64 page16 kv_len129..136 bf16", max_abs_err=f"{errz:.3e}",
-         tol=BF16_LIMIT, of_limit=f"{sharez:.3f}", f32_err=f"{errz32:.3e}", f32_tol=F32_TOL,
-         kernel_ms=f"{time_ms(lambda: paged_decode(qz, kpz, vpz, tables, lens), 200):.5f}",
-         plain_ms=f"{time_ms(lambda: paged_decode_ref(qz, kpz, vpz, tables, lens), 50):.5f}",
-         library_ms=f"{time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200):.5f}",
-         bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
+    # zamba2's shared attention block (H 32, KVH 32, G 1, D 64) and olmoe's
+    # attention (H 16, KVH 16, G 1, D 128) at decode
+    for label, Hz, KVHz, Dz in (("zamba2", 32, 32, 64), ("olmoe", 16, 16, 128)):
+        kpz, vpz = (rand(1, Smax, KVHz, Dz).view(NB, page, KVHz, Dz) for _ in range(2))
+        qz = rand(1, Hz, Dz)
+        errs = []
+        for n in range(129, 137):
+            lens = torch.tensor([n], dtype=torch.int32, device=dev)
+            errs.append(assert_bf16(f"paged_decode {label} kv_len {n}", paged_decode(qz, kpz, vpz, tables, lens),
+                                    paged_decode_ref(qz, kpz, vpz, tables, lens)))
+        errz, sharez = (max(e) for e in zip(*errs))
+        rec["max_abs_err"] = max(rec["max_abs_err"], errz)
+        errz32, _ = assert_close(f"paged_decode {label} f32",
+                                 paged_decode(qz.float(), kpz.float(), vpz.float(), tables, lens),
+                                 paged_decode_ref(qz.float(), kpz.float(), vpz.float(), tables, lens), F32_TOL)
+        sq, sk, sv, _ = _dense_sdpa_inputs(qz, kpz, vpz, tables, lens)
+        sk, sv = sk[:, :, :136].contiguous(), sv[:, :, :136].contiguous()
+        boundz = _decode_bound(1, Hz, KVHz, Dz, 136, NB)
+        rec[label] = {"shape": f"B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len136 bf16", "max_abs_err": errz,
+                      "ms": time_ms(lambda: paged_decode(qz, kpz, vpz, tables, lens), 200),
+                      "plain_ms": time_ms(lambda: paged_decode_ref(qz, kpz, vpz, tables, lens), 50),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200),
+                      "bound_ms": boundz[0], "bound_by": boundz[1]}
+        line("paged_decode", case=f"{label} B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len129..136 bf16",
+             max_abs_err=f"{errz:.3e}", tol=BF16_LIMIT, of_limit=f"{sharez:.3f}", f32_err=f"{errz32:.3e}",
+             f32_tol=F32_TOL, kernel_ms=f"{rec[label]['ms']:.5f}", plain_ms=f"{rec[label]['plain_ms']:.5f}",
+             library_ms=f"{rec[label]['library_ms']:.5f}", bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
 
     # batch: 32 sequences, mixed kv_len up to 4096, shuffled tables, one kv_len = 0 row
     B, NBb = 32, 256
@@ -721,19 +777,43 @@ def phase_ssd():
     return rec
 
 
-# ------------------------------------------------------ recurrent models
-RECURRENT = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b"}
+# ------------------------------------------------------- full-width models
+MODELS = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b", "olmoe": "olmoe-1b-7b", "minicpm3": "minicpm3-4b"}
 PROMPT, DECODE, HALF = 128, 8, 64
+KERNELS = ("flash", "paged_decode", "quantize", "dequantize", "wkv", "ssd")
 
 
 def expected_launches(cfg, prefills: int, tokens: int):
     """Kernel launches of ``prefills`` prefills and ``tokens`` decode steps."""
     from repro_torch.models.transformer import n_attn_sites
 
+    want = dict.fromkeys(KERNELS, 0)
+    L = cfg.n_layers
     if cfg.family == "rwkv6":
-        return {"flash": 0, "paged_decode": 0, "wkv": cfg.n_layers * prefills, "ssd": 0}
-    sites = n_attn_sites(cfg)
-    return {"flash": sites * prefills, "paged_decode": sites * tokens, "wkv": 0, "ssd": cfg.n_layers * prefills}
+        want["wkv"] = L * prefills
+    elif cfg.family == "hybrid":
+        sites = n_attn_sites(cfg)
+        want.update(flash=sites * prefills, paged_decode=sites * tokens, ssd=L * prefills)
+    elif cfg.attention == "mla":  # decode is the absorbed plain-torch path
+        want["flash"] = L * prefills
+    else:
+        want.update(flash=L * prefills, paged_decode=L * tokens)
+    return want
+
+
+def _widths(cfg):
+    from repro_torch.models.transformer import n_attn_sites
+
+    if cfg.family == "rwkv6":
+        return dict(heads=cfg.n_heads, head=cfg.d_head, d_ff=cfg.d_ff)
+    if cfg.family == "hybrid":
+        return dict(ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state, d_inner=cfg.expand * cfg.d_model,
+                    attn_sites=n_attn_sites(cfg), heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff)
+    if cfg.attention == "mla":
+        return dict(heads=cfg.n_heads, q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank, qk_nope=cfg.qk_nope_dim,
+                    qk_rope=cfg.qk_rope_dim, v_head=cfg.v_head_dim, d_ff=cfg.d_ff)
+    return dict(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head=cfg.d_head, experts=cfg.n_experts,
+                top_k=cfg.experts_per_token, moe_d_ff=cfg.moe_d_ff)
 
 
 def f32_tree(tree):
@@ -783,11 +863,108 @@ def chained_prefill(cfg, params, toks, plain: bool, f32: bool):
     return full[:, HALF:].float(), tail.float()
 
 
-def phase_recurrent(phase: str, seed: int):
-    """Full-width rwkv6-1.6b or zamba2-1.2b: greedy decode through the
-    kernels, held against the plain versions (in bf16 and on an f32 copy of
-    the weights); state chaining; timings; a profile.  Returns the launch
-    counts of the kernel-path run."""
+class RoutingRecorder:
+    """While active, records the top-k expert ids of every ``moe_layer``
+    call of the port's forward (the probabilities it returns, sorted as
+    ``layers.moe_route`` sorts them).  Reads what the layer computes and
+    changes nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import transformer
+
+        self._real = real = transformer.moe_layer
+
+        def spy(p, cfg, x, dropless=False):
+            out, probs = real(p, cfg, x, dropless)
+            ids = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :cfg.experts_per_token]
+            self.calls.append(ids)
+            return out, probs
+
+        transformer.moe_layer = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_layer = self._real
+
+
+class RoutingReplay:
+    """While active, each ``moe_layer`` call routes to the expert ids
+    recorded at the same call of another run (``calls``, in call order),
+    with gate weights from this run's own probabilities at those ids.  The
+    plain path then takes the kernel path's routing, so comparing the two
+    holds the kernels, not near-tie routing choices that a one-ulp
+    difference upstream flips."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers
+
+        self._real = real = layers.moe_route
+        recorded = iter(self.calls)
+
+        def pinned(p, cfg, x):
+            probs, _, _ = real(p, cfg, x)
+            ids = next(recorded).view(*x.shape[:-1], cfg.experts_per_token)
+            w = torch.gather(probs, -1, ids)
+            return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), ids
+
+        layers.moe_route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_route = self._real
+
+
+def routing_differences(a, b, n_experts: int):
+    """(expert choices in ``a`` not made in ``b``, all choices): the two
+    recordings cover the same calls on the same tokens."""
+    import torch
+
+    if len(a) != len(b):
+        raise AssertionError(f"routing recordings of {len(a)} and {len(b)} moe calls")
+    diff = total = 0
+    for x, y in zip(a, b):
+        ox = torch.zeros(x.shape[0], n_experts, device=x.device).scatter_(1, x, 1.0)
+        oy = torch.zeros(y.shape[0], n_experts, device=y.device).scatter_(1, y, 1.0)
+        diff += int((ox - oy).clamp(min=0).sum())
+        total += x.numel()
+    return diff, total
+
+
+def latent_slab(cfg, params, toks):
+    """minicpm3-4b's latent cache of the first 16 prompt tokens after a
+    kernel-path prefill, as a (16, L·(kv_lora + rope)) bf16 slab: c ‖ kr
+    per layer, side by side."""
+    import torch
+
+    from repro_torch.models import api
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, 1, toks.shape[1], "cuda")
+        api.prefill_fn(cfg)(params, {"tokens": toks}, cache, 0)
+        slab = torch.cat([cache["c"][:, 0, :16], cache["kr"][:, 0, :16]], dim=-1)  # (L, 16, 288)
+    return slab.permute(1, 0, 2).reshape(16, -1).contiguous()
+
+
+def phase_model(phase: str, seed: int, capture=None):
+    """A full-width model from ``seed``: greedy decode through the kernels,
+    held against the plain versions (in bf16 and on an f32 copy of the
+    weights); chaining of prefills; timings; a profile.  Returns the launch
+    counts of the kernel-path run and what ``capture(cfg, params, toks)``
+    returns while the weights are on the card."""
     import numpy as np
     import torch
 
@@ -796,22 +973,21 @@ def phase_recurrent(phase: str, seed: int):
     from repro_torch.launch.serve_e2e import greedy_decode
     from repro_torch.models import api
     from repro_torch.models.common import count_params, tree_leaves
-    from repro_torch.models.transformer import n_attn_sites
 
-    cfg = get_config(RECURRENT[phase])
+    cfg = get_config(MODELS[phase])
+    moe = cfg.family == "moe"
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed, "cuda")
     torch.cuda.synchronize()
-    widths = (dict(heads=cfg.n_heads, head=cfg.d_head, d_ff=cfg.d_ff) if cfg.family == "rwkv6" else
-              dict(ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state, d_inner=cfg.expand * cfg.d_model,
-                   attn_sites=n_attn_sites(cfg), heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff))
     line(phase, arch=cfg.name, init_params_s=f"{time.perf_counter() - t0:.2f}", params=count_params(params),
          weights_gb=f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f}",
-         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size, **widths)
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size, **_widths(cfg))
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, PROMPT).tolist()
 
+    routing = RoutingRecorder() if moe else contextlib.nullcontext()
     kernels.reset_launch_counts()
-    tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda")
+    with routing:
+        tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda")
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = expected_launches(cfg, 1, DECODE)
@@ -823,26 +999,42 @@ def phase_recurrent(phase: str, seed: int):
 
     # The plain versions on the same inputs, teacher-forced.  In bf16, the
     # models' own dtype, the logits are gated at LOGIT_REL_TOL; token
-    # agreement and state chaining are printed and not gated: at full width
-    # with random weights a bf16 rounding that differs anywhere (a kernel's
-    # f32 sum order, or cuBLAS tiling another M) grows with depth, in the
-    # plain path against itself as much as against the kernels, and flips
-    # near-tie argmaxes among 32k-65k random logits (PERF.md, Findings).
+    # agreement and chaining are printed and not gated: at full width with
+    # random weights a bf16 rounding that differs anywhere (a kernel's f32
+    # sum order, or cuBLAS tiling another M) grows with depth, in the plain
+    # path against itself as much as against the kernels, and flips
+    # near-tie argmaxes among 32k-151k random logits (PERF.md, Findings).
     # Agreement and chaining are gated on an f32 copy of the same weights
     # through the same kernels, where rounding stays too small to grow.
-    plain_tokens, _, plain_logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", plain_kernels=True,
-                                                  inputs=fed)
+    plain_routing = RoutingRecorder() if moe else contextlib.nullcontext()
+    with plain_routing:
+        plain_tokens, _, plain_logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", plain_kernels=True,
+                                                      inputs=fed)
     agree = sum(a == b for a, b in zip(plain_tokens, tokens)) / DECODE
     err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
+    what = "teacher-forced plain path, bf16 (agreement and chaining not gated)"
+    if moe:
+        # routing decides the result: the gate reads the plain path run
+        # on the kernel path's routing; the free-running difference and
+        # the count of choices that flipped are printed
+        diff, total = routing_differences(routing.calls, plain_routing.calls, cfg.n_experts)
+        line(phase, check="top-k routing, kernel path vs plain path, bf16", routing_choices_differing=diff,
+             routing_choices=total, moe_calls=len(routing.calls), logits_max_abs_err_own_routing=f"{err:.4e}",
+             of_max_abs_logit=f"{err / scale:.4f}")
+        with RoutingReplay(routing.calls):
+            _, _, plain_logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", plain_kernels=True, inputs=fed)
+        err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
+        what = "teacher-forced plain path on the kernel path's routing, bf16 (agreement and chaining not gated)"
     toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
     spread = {label: max_err(*chained_prefill(cfg, params, toks, plain, f32=False))
               for label, plain in (("kernel", False), ("plain", True))}
-    line(phase, check="teacher-forced plain path, bf16 (agreement and chaining not gated)",
-         plain_tokens=plain_tokens, agreement=f"{agree:.3f}", logits_max_abs_err=f"{err:.4e}",
+    line(phase, check=what, plain_tokens=plain_tokens, agreement=f"{agree:.3f}", logits_max_abs_err=f"{err:.4e}",
          max_abs_logit=f"{scale:.4f}", tol=f"{LOGIT_REL_TOL}*max|logit|={LOGIT_REL_TOL * scale:.4f}",
          chaining_err_kernel_path=f"{spread['kernel']:.4e}", chaining_err_plain_path=f"{spread['plain']:.4e}")
+    # every gate below is read before the phase fails, so one run shows them all
+    failed = []
     if err > LOGIT_REL_TOL * scale or not bool(torch.isfinite(plain_logits).all()):
-        raise AssertionError(f"{phase}: the kernel path and the plain path disagree in bf16")
+        failed.append("the kernel path and the plain path disagree in bf16")
 
     params32 = f32_tree(params)
     k32 = teacher_forced(cfg, params32, prompt, fed, plain=False)
@@ -853,39 +1045,190 @@ def phase_recurrent(phase: str, seed: int):
          logits_max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
          tol=f"{F32_LOGIT_REL_TOL}*max|logit|={F32_LOGIT_REL_TOL * scale:.4f}")
     if agree < MIN_TOKEN_AGREEMENT or err > F32_LOGIT_REL_TOL * scale or not bool(torch.isfinite(p32).all()):
-        raise AssertionError(f"{phase}: the kernel path and the plain path disagree")
+        failed.append("the kernel path and the plain path disagree in f32")
     full, tail = chained_prefill(cfg, params32, toks, plain=False, f32=True)
     cerr, cscale = max_err(tail, full), float(full.abs().max())
-    line(phase, check=f"state chaining {HALF}+{PROMPT - HALF} vs {PROMPT}, f32, kernel path",
+    line(phase, check=f"chained prefill {HALF}+{PROMPT - HALF} vs {PROMPT}, f32, kernel path",
          logits_max_abs_err=f"{cerr:.4e}", max_abs_logit=f"{cscale:.4f}",
          tol=f"{F32_LOGIT_REL_TOL}*max|logit|={F32_LOGIT_REL_TOL * cscale:.4f}")
     if cerr > F32_LOGIT_REL_TOL * cscale or not bool(torch.isfinite(tail).all()):
-        raise AssertionError(f"{phase}: chained prefill disagrees with the single-shot prefill")
+        failed.append("chained prefill disagrees with the single-shot prefill")
+    if failed:
+        raise AssertionError(f"{phase}: " + "; ".join(failed))
     del params32, k32, p32
     torch.cuda.empty_cache()
 
     line(phase, **path_times(cfg, params, prompt, fed))
     profile_prefill(cfg, params, toks, phase=phase, table=f"profile_prefill_{phase}.txt")
+    captured = capture(cfg, params, toks) if capture is not None else None
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, captured
 
 
-def kernels_line(flash, decode, wkv, ssd, counts):
-    """``counts`` maps each kernel to the launch counts of the main path that
-    runs it: the qwen3-14b serve for flash and paged_decode, rwkv6-1.6b for
-    wkv, zamba2-1.2b for ssd."""
+# ------------------------------------------------------------ int8 codec
+# the reference kernel test's tolerance (tests/test_kernels.py:27-30,44): q
+# within one step, under 1 % of entries differing, scale rtol 1e-6, and
+# dequantize within one step of q (max scale) + 1e-3
+CODEC_Q_STEP, CODEC_Q_SHARE, CODEC_SCALE_RTOL = 1, 0.01, 1e-6
+
+
+def _codec_bound(T, C, in_bytes, out_bytes):
+    return bound_ms(T * C * (in_bytes + out_bytes) + 4 * C, 0.0)
+
+
+def _codec_case(name, x, q, s, outs, rec):
+    """Hold the kernels' (q, scale) and ``outs`` (their dequantized values,
+    one tensor per output dtype) against the plain version and the host
+    codec (``core/codec.py``) on the same input; one line; raise outside
+    the reference's tolerance."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.codec import dequantize_int8, quantize_int8
+    from repro_torch.kernels.kv_codec import dequantize_ref, quantize_ref
+
+    qr, sr = quantize_ref(x)
+    hq, hs = quantize_int8(x.float().cpu().numpy())  # bf16 and f16 are exact in f32
+    worst_step, worst_share, diffs, sdiff = 0, 0.0, {}, {}
+    for label, wq, ws in (("plain", qr, sr), ("host", torch.from_numpy(hq).to(q.device),
+                                              torch.from_numpy(hs).to(q.device))):
+        dq = (q.int() - wq.int()).abs()
+        diffs[label] = int((dq > 0).sum())
+        step, share = int(dq.max()), float((dq > 0).float().mean())
+        srel = float(((s - ws).abs() / ws.abs()).max())
+        sdiff[label] = srel
+        if step > CODEC_Q_STEP or share >= CODEC_Q_SHARE or srel > CODEC_SCALE_RTOL:
+            raise AssertionError(f"kv_codec {name}: quantize vs {label}: max |dq| {step}, {share:.4%} differ, "
+                                 f"scale rel err {srel:.2e}")
+        worst_step, worst_share = max(worst_step, step), max(worst_share, share)
+    atol = float(s.max()) + 1e-3
+    d_host = torch.from_numpy(dequantize_int8(hq, hs, np.float32)).to(q.device)
+    derr = {"plain": max(max_err(d, dequantize_ref(q, s, d.dtype)) for d in outs),
+            "host": max(max_err(d, d_host) for d in outs)}
+    if max(derr.values()) > atol:
+        raise AssertionError(f"kv_codec {name}: dequantize off by {derr} (atol {atol:.4g})")
+    rec["q_max_step"] = max(rec.get("q_max_step", 0), worst_step)
+    rec["q_differing"] = rec.get("q_differing", 0) + diffs["plain"] + diffs["host"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), float(worst_step))
+    rec["dequant_max_abs_err"] = max(rec.get("dequant_max_abs_err", 0.0), derr["plain"])
+    line("kv_codec", case=name, shape="x".join(map(str, x.shape)), dtype=str(x.dtype).replace("torch.", ""),
+         out="/".join(str(d.dtype).replace("torch.", "") for d in outs),
+         q_differing_vs_plain=diffs["plain"], q_differing_vs_host=diffs["host"], q_max_step=worst_step,
+         scale_rel_err_vs_plain=f"{sdiff['plain']:.2e}", scale_rel_err_vs_host=f"{sdiff['host']:.2e}",
+         dequant_err_vs_plain=f"{derr['plain']:.3e}", dequant_err_vs_host=f"{derr['host']:.3e}",
+         tol=f"|dq|<={CODEC_Q_STEP},<{CODEC_Q_SHARE:.0%},scale_rtol{CODEC_SCALE_RTOL},dequant_atol{atol:.4g}")
+
+
+def _codec_times(rec_q, rec_d, key, x, out_dtype, iters):
+    """Device times of both kernels and their plain versions on ``x``, and
+    their bounds; into rec_q[key] and rec_d[key]."""
+    from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, quantize_ref
+
+    T, C = x.reshape(-1, x.shape[-1]).shape
+    q, s = quantize(x)
+    out_bytes = {"torch.float16": 2, "torch.bfloat16": 2, "torch.float32": 4}[str(out_dtype)]
+    for rec, fn, plain, bound in (
+        (rec_q, lambda: quantize(x), lambda: quantize_ref(x), _codec_bound(T, C, x.element_size(), 1)),
+        (rec_d, lambda: dequantize(q, s, out_dtype=out_dtype), lambda: dequantize_ref(q, s, out_dtype),
+         _codec_bound(T, C, 1, out_bytes)),
+    ):
+        entry = rec.setdefault(key, {}) if key else rec
+        entry.update(ms=time_ms(fn, iters), plain_ms=time_ms(plain, max(1, iters // 4)),
+                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        entry.setdefault("shape", f"{T}x{C} {str(x.dtype).replace('torch.', '')}")
+    for name, rec in (("quantize", rec_q), ("dequantize", rec_d)):
+        e = rec[key] if key else rec
+        line("kv_codec", kernel=name, timing=key or "serve block", shape=e["shape"], kernel_ms=f"{e['ms']:.5f}",
+             plain_ms=f"{e['plain_ms']:.5f}", library_ms="null", bound_ms=f"{e['bound_ms']:.5f}",
+             bound_by=e["bound_by"])
+
+
+def phase_kv_codec(serve_blocks, slab):
+    """The codec's entry points on the KV state the port's models produce:
+    ``serve_blocks`` (numpy float16 blocks of one full-width qwen3-14b
+    prefill, as the serve hook hands them to the store) and ``slab``
+    (minicpm3-4b's latent cache, bf16, on the card).  Returns the two
+    kernels' records and the launch counts of the path run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.kv_codec import dequantize, quantize
+
+    blocks = [torch.from_numpy(b).to("cuda") for b in serve_blocks]
+    line("kv_codec", serve_blocks=len(blocks), block_shape="x".join(map(str, blocks[0].shape)),
+         block_dtype=str(blocks[0].dtype).replace("torch.", ""), slab_shape="x".join(map(str, slab.shape)),
+         slab_dtype=str(slab.dtype).replace("torch.", ""))
+
+    # the path: encode every block and the slab, decode them back
+    kernels.reset_launch_counts()
+    path = []
+    for x in blocks + [slab]:
+        q, s = quantize(x)
+        path.append((x, q, s, dequantize(q, s, out_dtype=x.dtype)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n = len(blocks) + 1
+    want = {**dict.fromkeys(KERNELS, 0), "quantize": n, "dequantize": n}
+    line("kv_codec", launches=json.dumps(counts).replace(" ", ""))
+    if counts != want:
+        raise AssertionError(f"kv_codec: launch counts {counts}, expected {want}")
+
+    rec_q, rec_d = {}, {}
+    for i, (x, q, s, d) in enumerate(path):
+        _codec_case(f"serve block {i}" if i < len(blocks) else "minicpm3 latent slab", x, q, s, [d], rec_q)
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").mul_(4).to(dtype)
+
+    cases = [("kernels_micro", randn(256, 8192))]
+    for shape in ((4, 8, 128), (3, 5, 96)):
+        cases += [("leading axes", randn(*shape, dtype=dt)) for dt in (torch.bfloat16, torch.float32, torch.float16)]
+    zero = randn(64, 300, dtype=torch.float32)
+    zero[:, 7] = 0.0
+    cases.append(("zero channel", zero))
+    for name, x in cases:
+        q, s = quantize(x)
+        outs = [dequantize(q, s, out_dtype=out) for out in (torch.bfloat16, torch.float32, torch.float16)]
+        _codec_case(name, x, q, s, outs, rec_q)
+    if float(quantize(zero)[1][7]) != 1.0:
+        raise AssertionError("kv_codec: an all-zero channel must get scale 1.0")
+    rec_d["max_abs_err"] = rec_q["dequant_max_abs_err"]
+
+    _codec_times(rec_q, rec_d, None, blocks[0], torch.float16, 200)
+    _codec_times(rec_q, rec_d, "slab", slab, torch.bfloat16, 200)
+    large = randn(4096, 8192)
+    _codec_times(rec_q, rec_d, "large", large, torch.bfloat16, 20)
+    line("kv_codec", summary="all cases", q_max_step=rec_q["q_max_step"], q_differing=rec_q["q_differing"],
+         dequant_max_abs_err=f"{rec_q['dequant_max_abs_err']:.3e}")
+    del blocks, path, large
+    torch.cuda.empty_cache()
+    return rec_q, rec_d, counts
+
+
+def kernels_line(recs, counts):
+    """``recs`` maps each kernel to its record; ``counts`` to the launch
+    counts of the main path that runs it: the qwen3-14b serve for flash and
+    paged_decode, the codec's entry points over the serve blocks and the
+    latent slab for quantize and dequantize, rwkv6-1.6b for wkv,
+    zamba2-1.2b for ssd."""
     entries = []
-    for name, rec, src, rep, tol in (
-        ("flash", flash, "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    for name, src, rep, tol in (
+        ("flash", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:61", BF16_LIMIT),
-        ("paged_decode", decode, "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        ("paged_decode", "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
          "src/repro/kernels/decode_attention/decode_attention.py:65", BF16_LIMIT),
-        ("wkv", wkv, "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+        ("quantize", "src/repro_torch/kernels/kv_codec/csrc/kv_codec.cu",
+         "src/repro/kernels/kv_codec/kv_codec.py:36", f"|dq|<={CODEC_Q_STEP},scale_rtol{CODEC_SCALE_RTOL}"),
+        ("dequantize", "src/repro_torch/kernels/kv_codec/csrc/kv_codec.cu",
+         "src/repro/kernels/kv_codec/kv_codec.py:57", "max(scale)+1e-3"),
+        ("wkv", "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
          "src/repro/kernels/rwkv6/rwkv6.py:84", f"atol=rtol={WKV_TOL}"),
-        ("ssd", ssd, "src/repro_torch/kernels/mamba2/csrc/mamba2.cu",
+        ("ssd", "src/repro_torch/kernels/mamba2/csrc/mamba2.cu",
          "src/repro/kernels/mamba2/mamba2.py:70", f"atol=rtol={SSD_TOL}"),
     ):
+        rec = recs[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], "max_abs_err": rec["max_abs_err"], "tol": tol,
@@ -893,8 +1236,13 @@ def kernels_line(flash, decode, wkv, ssd, counts):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
             "large": rec["large"],
         }
+        for extra in ("olmoe", "minicpm3", "zamba2", "slab"):
+            if extra in rec:
+                entry[extra] = rec[extra]
         if entry["library_ms"] is None:
-            entry["library_note"] = "no single PyTorch call computes this scan"
+            entry["library_note"] = ("no single PyTorch call computes the absmax-scaled int8 codec"
+                                     if name in ("quantize", "dequantize") else
+                                     "no single PyTorch call computes this scan")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -906,6 +1254,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails when the repository is not beside this file)
+    from repro_torch.serving.real_prefill import make_real_prefill
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -916,13 +1265,20 @@ def main() -> int:
     ssd = phase_ssd()
     cfg, params, res, counts = phase_serve(SEED)
     phase_decode_check(cfg, params, res)
+    # the KV blocks one 128-token prefill hands to the store, for the codec
+    serve_blocks, _ = make_real_prefill(cfg, params, 16, "cuda")(res["prompt"], 0)
     del params
     torch.cuda.empty_cache()
-    rwkv6_counts = phase_recurrent("rwkv6", SEED)
-    zamba2_counts = phase_recurrent("zamba2", SEED)
+    rwkv6_counts, _ = phase_model("rwkv6", SEED)
+    zamba2_counts, _ = phase_model("zamba2", SEED)
+    phase_model("olmoe", SEED)
+    _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
+    quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
+                   "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}
-    print(json.dumps(kernels_line(flash, decode, wkv, ssd, path_counts)), flush=True)
+    recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd}
+    print(json.dumps(kernels_line(recs, path_counts)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.1f} card={smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

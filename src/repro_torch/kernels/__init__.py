@@ -11,17 +11,26 @@ from typing import Dict
 
 from .decode_attention import ops as _decode_ops
 from .flash_attention import ops as _flash_ops
+from .kv_codec import ops as _codec_ops
 from .mamba2 import ops as _ssd_ops
 from .rwkv6 import ops as _wkv_ops
 
-_COUNTED = {"flash": _flash_ops, "paged_decode": _decode_ops, "wkv": _wkv_ops, "ssd": _ssd_ops}
+# kernel name -> (wrapper module, the module's counter of that kernel's launches)
+_COUNTED = {
+    "flash": (_flash_ops, "launches"),
+    "paged_decode": (_decode_ops, "launches"),
+    "wkv": (_wkv_ops, "launches"),
+    "ssd": (_ssd_ops, "launches"),
+    "quantize": (_codec_ops, "quantize_launches"),
+    "dequantize": (_codec_ops, "dequantize_launches"),
+}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)

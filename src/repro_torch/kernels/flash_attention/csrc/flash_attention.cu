@@ -5,7 +5,9 @@
 // (body ``_kernel``): the same function, queries at absolute positions
 // q_offset + i, keys at j, key j visible to query i when j <= q_offset + i
 // (causal) and j < Skv; f32 online softmax; output acc / max(l, 1e-30) in
-// the input dtype; GQA reads KV head h / (H / KVH).
+// the input dtype; GQA reads KV head h / (H / KVH).  V's head dim DV may
+// differ from the q/k head dim D (MLA: D 96, DV 64); the scale is the
+// caller's, D^-0.5 as in the reference.
 //
 // What bounds it on an H100: at the serve path's shapes (one 128-token
 // prompt, 40 heads of 128) it moves ~3 MB and does ~0.2 GFLOP, so device
@@ -20,7 +22,7 @@
 // are staged in shared memory in their own dtype (bf16 halves the bytes
 // against f32); scores, running max and sum, and the accumulator stay in
 // f32 registers.  128 threads form a 16 x 8 grid: each thread holds a 4 x 8
-// block of scores and a 4 x (D/8) block of the accumulator.  Ragged query
+// block of scores and a 4 x (DV/8) block of the accumulator.  Ragged query
 // and key edges are masked in the kernel, so the wrapper makes no padded
 // copies; batch and sequence strides come from the caller, so a slice of
 // the KV cache is read in place.  Tiles are loaded with 16-byte loads, a
@@ -58,14 +60,14 @@ template <typename T> struct RowPad { static constexpr int value = 4 / (int)size
 template <typename T, int ROWS, int D, int LDS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, int n_rows, int tid) {
     constexpr int VEC = 16 / (int)sizeof(T);
-    constexpr int DV = D / VEC;
-    constexpr int N = ROWS * DV;
+    constexpr int DVEC = D / VEC;  // 16-byte units per row
+    constexpr int N = ROWS * DVEC;
     constexpr int PER = (N + THREADS - 1) / THREADS;
     uint4 buf[PER];
 #pragma unroll
     for (int it = 0; it < PER; ++it) {
         const int i = tid + it * THREADS;
-        const int r = i / DV, c = (i % DV) * VEC;
+        const int r = i / DVEC, c = (i % DVEC) * VEC;
         buf[it] = make_uint4(0u, 0u, 0u, 0u);
         if (i < N && r < n_rows) buf[it] = __ldg(reinterpret_cast<const uint4*>(src + r * stride + c));
     }
@@ -73,7 +75,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, 
     for (int it = 0; it < PER; ++it) {
         const int i = tid + it * THREADS;
         if (i < N) {
-            const int r = i / DV, c = (i % DV) * VEC;
+            const int r = i / DVEC, c = (i % DVEC) * VEC;
             uint32_t* d32 = reinterpret_cast<uint32_t*>(dst + r * LDS + c);
             d32[0] = buf[it].x;
             d32[1] = buf[it].y;
@@ -83,14 +85,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, 
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 constexpr size_t smem_bytes() {
     return (size_t)(BQ + BK) * (D + RowPad<T>::value) * sizeof(T)   // Q, K tiles
-         + (size_t)BK * D * sizeof(T)                           // V tile
+         + (size_t)BK * DV * sizeof(T)                          // V tile
          + (size_t)BQ * (BK + 1) * sizeof(float);               // P tile
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int H, int KVH, int Sq, int Skv,
@@ -98,13 +100,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                  int causal, int q_offset, float scale) {
     constexpr int LD = D + RowPad<T>::value;
-    constexpr int DN = D / TX;          // accumulator columns per thread
+    constexpr int DN = DV / TX;         // accumulator columns per thread
     constexpr int PL = BK + 1;          // P tile row stride (floats)
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* Qs = reinterpret_cast<T*>(smem_raw);
     T* Ks = Qs + BQ * LD;
     T* Vs = Ks + BK * LD;
-    float* Ps = reinterpret_cast<float*>(Vs + BK * D);
+    float* Ps = reinterpret_cast<float*>(Vs + BK * DV);
 
     const int q0 = blockIdx.x * BQ;
     const int h = blockIdx.y;
@@ -116,8 +118,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     const T* qb = q + b * q_sb + (int64_t)h * D;
     const T* kb = k + b * k_sb + (int64_t)kvh * D;
-    const T* vb = v + b * v_sb + (int64_t)kvh * D;
-    T* ob = o + b * o_sb + (int64_t)h * D;
+    const T* vb = v + b * v_sb + (int64_t)kvh * DV;
+    T* ob = o + b * o_sb + (int64_t)h * DV;
 
     load_tile<T, BQ, D, LD>(Qs, qb + (int64_t)q0 * q_ss, q_ss, Sq - q0, tid);
 
@@ -140,7 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int k0 = 0; k0 < kv_end; k0 += BK) {
         __syncthreads();  // the previous tile's readers are done with K, V, P
         load_tile<T, BK, D, LD>(Ks, kb + (int64_t)k0 * k_ss, k_ss, Skv - k0, tid);
-        load_tile<T, BK, D, D>(Vs, vb + (int64_t)k0 * v_ss, v_ss, Skv - k0, tid);
+        load_tile<T, BK, DV, DV>(Vs, vb + (int64_t)k0 * v_ss, v_ss, Skv - k0, tid);
         __syncthreads();
 
         float s[RM][CN];
@@ -201,7 +203,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
             for (int i = 0; i < RM; ++i) pv[i] = Ps[(ty * RM + i) * PL + c];
 #pragma unroll
-            for (int n = 0; n < DN; ++n) vv[n] = to_f32(Vs[c * D + tx + TX * n]);
+            for (int n = 0; n < DN; ++n) vv[n] = to_f32(Vs[c * DV + tx + TX * n]);
 #pragma unroll
             for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -221,12 +223,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
            int Sq, int Skv, const int64_t* st, int causal, int q_offset, float scale,
            cudaStream_t stream) {
-    const size_t smem = smem_bytes<T, D>();
-    auto kern = flash_fwd_kernel<T, D>;
+    const size_t smem = smem_bytes<T, D, DV>();
+    auto kern = flash_fwd_kernel<T, D, DV>;
     static kernel_common::SmemGrant grant;  // one size per instantiation
     cudaError_t e = grant.ensure(kern, smem);
     if (e != cudaSuccess) return (int)e;
@@ -238,34 +240,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     return (int)cudaGetLastError();
 }
 
+// (D, DV) pairs with an instance: D = DV at 32, 64 and 128, and MLA's (96, 64).
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int H,
+int dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, int B, int H,
                int KVH, int Sq, int Skv, const int64_t* st, int causal, int q_offset,
                float scale, cudaStream_t stream) {
-    switch (D) {
-        case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (D == 32 && DV == 32)
+        return launch<T, 32, 32>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    if (D == 64 && DV == 64)
+        return launch<T, 64, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    if (D == 128 && DV == 128)
+        return launch<T, 128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    if (D == 96 && DV == 64)
+        return launch<T, 96, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  q, o (B, Sq, H, D) and k, v
-// (B, Skv, KVH, D), each with unit stride over D and stride D over heads;
-// strides = {q_b, q_s, k_b, k_s, v_b, v_s, o_b, o_s} in elements.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 float32, 1 bfloat16.  q (B, Sq, H, D), k (B, Skv, KVH, D),
+// v (B, Skv, KVH, DV) and o (B, Sq, H, DV), each with unit stride over its
+// head dim and that head dim as its stride over heads; strides = {q_b, q_s,
+// k_b, k_s, v_b, v_s, o_b, o_s} in elements.  Returns the cudaError_t of
+// the launch (0 on success).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KVH, int Sq, int Skv, int D,
+                        int B, int H, int KVH, int Sq, int Skv, int D, int DV,
                         const int64_t* strides, int causal, int q_offset, float scale,
                         void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return dispatch_d<float>(D, q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, q_offset, scale, s);
-        case 1: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, q_offset, scale, s);
+        case 0: return dispatch_d<float>(D, DV, q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, q_offset, scale, s);
+        case 1: return dispatch_d<__nv_bfloat16>(D, DV, q, k, v, o, B, H, KVH, Sq, Skv, strides, causal, q_offset, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,4 +1,5 @@
 """Wrapper of the flash-attention kernel in model layout (B, S, H, D).
+V's head dim may differ from q's and k's (MLA: 96 and 64).
 
 A CUDA tensor launches ``csrc/flash_attention.cu``; a CPU tensor takes the
 plain version in ``ref.py``; any other device raises.  There is no
@@ -18,14 +19,15 @@ from .ref import attention_ref, flash_attention_plain
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# (q/k head dim, v head dim) pairs the kernel is instantiated for
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
 
 
 def _check(q, k, v, q_offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention expects q (B,Sq,H,D) and k/v (B,Skv,KVH,D)")
+        raise ValueError("flash_attention expects q (B,Sq,H,D), k (B,Skv,KVH,D) and v (B,Skv,KVH,Dv)")
     B, Sq, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     KVH = k.shape[2]
     if H % KVH:
@@ -42,7 +44,8 @@ def _check(q, k, v, q_offset: int) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     block_q: int = 128, block_k: int = 128):
-    """q (B, Sq, H, D); k/v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's dtype.
+    """q (B, Sq, H, D); k (B, Skv, KVH, D); v (B, Skv, KVH, Dv) -> (B, Sq,
+    H, Dv) in q's dtype, scores scaled by D^-0.5.
 
     Query i sits at absolute position ``q_offset + i``.  ``block_q`` and
     ``block_k`` keep the reference wrapper's contract: a non-causal call
@@ -62,23 +65,23 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 def _launch(q, k, v, causal: bool, q_offset: int):
     global launches
     B, Sq, H, D = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    Skv, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes (q/k, v) head dims {HEAD_DIMS}, got {(D, Dv)}")
     vec = 16 // q.element_size()  # the kernel moves tiles in 16-byte loads
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or (t.shape[2] > 1 and t.stride(2) != D):
+        if t.stride(3) != 1 or (t.shape[2] > 1 and t.stride(2) != t.shape[3]):
             raise ValueError(f"{name} must be contiguous over (heads, head_dim); strides {t.stride()}")
         if t.data_ptr() % 16 or t.stride(0) % vec or t.stride(1) % vec:
             raise ValueError(f"{name} must start on 16 bytes with batch/sequence strides of "
                              f"whole 16-byte units; strides {t.stride()}")
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lib = _build.bind("flash_attention", _SIGNATURES)
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                                    v.stride(0), v.stride(1), o.stride(0), o.stride(1))
     _build.call(lib, "flash_attention", "flash_attention_fwd", q.device,
                 DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, H, KVH, Sq, Skv, D, strides, int(causal), int(q_offset), float(D**-0.5))
+                B, H, KVH, Sq, Skv, D, Dv, strides, int(causal), int(q_offset), float(D**-0.5))
     launches += 1
     return o
 
@@ -86,7 +89,7 @@ def _launch(q, k, v, causal: bool, q_offset: int):
 _SIGNATURES = {
     "flash_attention_fwd": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p,
     ]),

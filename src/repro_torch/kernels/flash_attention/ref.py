@@ -9,8 +9,9 @@ F32 = torch.float32
 
 
 def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
-    """q (B, H, Sq, D); k/v (B, KVH, Skv, D); GQA via head grouping.
-    Query i sits at absolute position q_offset + i; key j at position j."""
+    """q (B, H, Sq, D); k (B, KVH, Skv, D); v (B, KVH, Skv, Dv) -> (B, H,
+    Sq, Dv); GQA via head grouping, scores scaled by D^-0.5.  Query i sits
+    at absolute position q_offset + i; key j at position j."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     G = H // KVH
@@ -23,10 +24,11 @@ def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.to(F32))
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, q_offset: int = 0):
-    """Model layout: q (B, Sq, H, D); k/v (B, Skv, KVH, D) -> (B, Sq, H, D)."""
+    """Model layout: q (B, Sq, H, D); k (B, Skv, KVH, D); v (B, Skv, KVH,
+    Dv) -> (B, Sq, H, Dv)."""
     out = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, q_offset)
     return out.transpose(1, 2)

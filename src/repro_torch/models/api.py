@@ -1,5 +1,5 @@
-"""Model API with the reference's call shapes, for the dense, rwkv6 and
-hybrid families:
+"""Model API with the reference's call shapes, for the dense (GQA or MLA),
+moe, rwkv6 and hybrid families:
 
   init_params(cfg, key, device)                  params on ``device``
   init_cache(cfg, batch, max_seq, device)        k/v cache and recurrent states

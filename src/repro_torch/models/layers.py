@@ -1,5 +1,5 @@
-"""Transformer layers of the dense decoders and of the hybrid's shared
-block: RMSNorm, RoPE, GQA attention and the SwiGLU MLP.
+"""Transformer layers: RMSNorm, RoPE, GQA and MLA attention, the SwiGLU
+MLP and the sort-based top-k MoE.
 
 Parameters arrive as dict trees built from ``build_*_template``.  Dtypes
 follow the reference: bf16 storage, f32 for norms, RoPE, softmax and
@@ -9,6 +9,10 @@ single-token decode; ``plain_kernels=True`` calls their plain PyTorch
 versions instead (on any device), which is how a run on the card is held
 against the plain path.  The reference's direct/chunked split at
 ``ATTN_CHUNK`` has no counterpart: both kernels are online-softmax loops.
+MLA's prefill runs the flash kernel at q/k head dim 96 and v head dim 64;
+its decode is the reference's absorbed path in latent space, plain torch
+as in the reference, and launches nothing.  The MoE's expert products
+are batched matmuls, which the reference also leaves outside any kernel.
 """
 
 from __future__ import annotations
@@ -155,6 +159,99 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     return out, new_cache
 
 
+# ----------------------------------------------------------- MLA attention
+def build_mla_template(cfg) -> Dict:
+    D, H = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": Spec((D, r_q)),
+        "q_a_norm": Spec((r_q,), init="ones"),
+        "wq_b": Spec((r_q, H * (dn + dr))),
+        "wkv_a": Spec((D, r_kv + dr)),
+        "kv_a_norm": Spec((r_kv,), init="ones"),
+        "wk_b": Spec((r_kv, H * dn)),
+        "wv_b": Spec((r_kv, H * dv)),
+        "wo": Spec((H * dv, D)),
+    }
+
+
+def mla_project_latent(p, cfg, x, positions):
+    """x -> (c_kv (B,S,r), k_rope (B,S,dr)): the compressed per-token state
+    that the cache holds."""
+    r_kv, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv_a = torch.matmul(x, p["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :r_kv], p["kv_a_norm"])
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    k_rope = apply_rope(kv_a[..., None, r_kv:], cos, sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(p, cfg, x, positions):
+    """x -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr))."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_a = rms_norm(torch.matmul(x, p["wq_a"]), p["q_a_norm"])
+    q = torch.matmul(q_a, p["wq_b"]).reshape(B, S, H, dn + dr)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+
+def _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope):
+    """One query token against the first T latent slots, in f32 in latent
+    space: q_nope is taken through wk_b, the output back through wv_b, so
+    per-head K/V are never formed (reference ``layers.py:295-309``).  The
+    caller passes exactly the visible slots, which is what the reference's
+    kv_len and causal mask keep."""
+    B, S, H, dn = q_nope.shape
+    r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.v_head_dim
+    wk = p["wk_b"].reshape(r, H, dn).to(F32)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(F32), wk)
+    scores = torch.einsum("bshr,btr->bhst", q_lat, c_kv.to(F32))
+    scores = scores + torch.einsum("bshd,btd->bhst", q_rope.to(F32), k_rope.to(F32))
+    pr = torch.softmax(scores / ((dn + dr) ** 0.5), dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", pr, c_kv.to(F32))
+    wv = p["wv_b"].reshape(r, H, dv).to(F32)
+    return torch.einsum("bshr,rhd->bshd", o_lat, wv)
+
+
+def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
+                  q_offset: int = 0, plain_kernels: bool = False):
+    """MLA attention.  x (B,S,D), positions (B,S) = q_offset + arange(S).
+
+    ``cache=None``: training, over x only -> (out, None).  ``cache=(c, kr,
+    pos)`` with c (B,S_max,r) and kr (B,S_max,dr): this call's latent is
+    written at offset ``pos``, in place, and attention runs over the first
+    ``pos+S`` slots -> (out, (c, kr)).  S > 1 (and training) expands the
+    latent to per-head K/V and runs the flash kernel at q/k head dim
+    dn+dr, v head dim dv; S == 1 with a cache takes the absorbed path."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)
+    c_new, kr_new = mla_project_latent(p, cfg, x, positions)
+
+    if cache is None:
+        c_kv, k_rope, new_cache, pos = c_new, kr_new, None, q_offset
+    else:
+        c_all, kr_all, pos = cache
+        c_all[:, pos:pos + S] = c_new
+        kr_all[:, pos:pos + S] = kr_new
+        c_kv, k_rope, new_cache = c_all[:, :pos + S], kr_all[:, :pos + S], (c_all, kr_all)
+
+    if cache is not None and S == 1:
+        out = _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope).to(x.dtype)
+    else:
+        T = c_kv.shape[1]
+        k_nope = torch.matmul(c_kv, p["wk_b"]).reshape(B, T, H, dn)
+        v = torch.matmul(c_kv, p["wv_b"]).reshape(B, T, H, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+        flash = flash_attention_plain if plain_kernels else flash_attention
+        out = flash(q, k, v, causal=cfg.causal, q_offset=pos)
+    out = torch.matmul(out.reshape(B, S, H * dv), p["wo"])
+    return out, new_cache
+
+
 # --------------------------------------------------------------------- MLP
 def build_mlp_template(cfg, d_ff: Optional[int] = None) -> Dict:
     D = cfg.d_model
@@ -165,3 +262,101 @@ def build_mlp_template(cfg, d_ff: Optional[int] = None) -> Dict:
 def swiglu_mlp(p, x):
     h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
     return torch.matmul(h, p["w_down"])
+
+
+# --------------------------------------------------------------------- MoE
+def build_moe_template(cfg) -> Dict:
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": Spec((D, E), dtype=F32, init="small"),
+        "w_gate": Spec((E, D, Fd)),
+        "w_up": Spec((E, D, Fd)),
+        "w_down": Spec((E, Fd, D)),
+    }
+
+
+def moe_capacity(cfg, S: int, dropless: bool) -> int:
+    """Expert slots per dispatch group (one batch row of S tokens), as the
+    reference sizes them: every slot a group could need when dropless and
+    S·k <= 4096, else the capacity factor (at least 2 when dropless)."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    if dropless and S * k <= 4096:
+        return S * k
+    if dropless:
+        return max(k, int(round(S * k / E * max(2.0, cfg.capacity_factor))))
+    return max(1, int(round(S * k / E * cfg.capacity_factor)))
+
+
+def moe_route(p, cfg, x):
+    """Router in f32: (probs (B,S,E), gate weights (B,S,k) renormalised,
+    expert ids (B,S,k)).  A stable descending sort keeps the lower expert
+    id first among equal probabilities, as ``lax.top_k`` does."""
+    logits = torch.matmul(x.to(F32), p["router"].to(F32))
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    gate_w, gate_e = vals[..., :k], ids[..., :k]
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_w, gate_e
+
+
+def _take_rows(x, idx):
+    """x (B, N, D), idx (B, M) -> (B, M, D) with out[b, m] = x[b, idx[b, m]]:
+    the reference's ``take_along_axis`` over rows, as one row gather (no
+    (B, M, D) index tensor)."""
+    B, N, D = x.shape
+    flat = idx + torch.arange(B, device=idx.device)[:, None] * N
+    return x.reshape(B * N, D).index_select(0, flat.reshape(-1)).reshape(B, idx.shape[1], D)
+
+
+def moe_layer(p, cfg, x, dropless: bool = False):
+    """Top-k token-choice MoE with group-local sort-based dispatch (one
+    group per batch row), the reference's ``moe_layer`` step for step:
+    the routed (token, choice) pairs are sorted by expert, each expert
+    takes the first C of its pairs into a (B, E, C, D) buffer (the rest
+    drop), the experts run as batched matmuls, and each token sums its k
+    outputs weighted by its gates.  Returns (out (B,S,D), probs (B·S, E)
+    f32)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, S, dropless)
+    dev = x.device
+    probs, gate_w, gate_e = moe_route(p, cfg, x)
+
+    flat_e = gate_e.reshape(B, S * k)
+    sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous())  # (B,E)
+    pos_in_e = torch.arange(S * k, device=dev)[None, :] - torch.gather(first, 1, sorted_e)
+    valid = pos_in_e < C
+    tok_of = order // k
+
+    # dispatch: buf[b, e, c] = sorted slot first[b, e] + c
+    xs_sorted = _take_rows(x, tok_of)  # (B, S*k, D)
+    slot = first[:, :, None] + torch.arange(C, device=dev)[None, None, :]  # (B,E,C)
+    ends = torch.cat([first[:, 1:], torch.full((B, 1), S * k, device=dev, dtype=first.dtype)], dim=1)
+    slot_ok = (slot < ends[:, :, None]).reshape(B, E * C)
+    slot_flat = torch.clamp(slot, 0, S * k - 1).reshape(B, E * C)
+    buf = _take_rows(xs_sorted, slot_flat)  # (B, E*C, D)
+    buf = buf.masked_fill(~slot_ok[..., None], 0).reshape(B, E, C, D)
+
+    h = F.silu(torch.matmul(buf, p["w_gate"])) * torch.matmul(buf, p["w_up"])  # (B,E,C,F)
+    y = torch.matmul(h, p["w_down"])  # (B,E,C,D)
+
+    # combine: sorted slot j reads y[sorted_e[j], pos_in_e[j]], weighted by
+    # its gate (cast to the activation dtype, as the reference does), then
+    # the inverse permutation restores token order and the k slots are summed
+    flat_pos = torch.clamp(sorted_e * C + torch.where(valid, pos_in_e, 0), 0, E * C - 1)
+    picked_sorted = _take_rows(y.reshape(B, E * C, D), flat_pos)
+    w_sorted = torch.gather(gate_w.reshape(B, S * k), 1, order)
+    picked_sorted = picked_sorted * (w_sorted * valid)[..., None].to(y.dtype)
+    inv_order = torch.argsort(order, dim=-1)
+    picked = _take_rows(picked_sorted, inv_order)
+    out = picked.reshape(B, S, k, D).sum(dim=2)
+    return out, probs.reshape(B * S, E)
+
+
+def moe_aux_loss(probs, gate_e, n_experts: int):
+    """Switch-style load-balancing loss: E · Σ_e mean prob · mean load."""
+    me = probs.mean(dim=0)
+    ce = F.one_hot(gate_e, n_experts).to(F32).sum(dim=1).mean(dim=0)
+    return n_experts * torch.sum(me * ce)

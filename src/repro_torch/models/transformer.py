@@ -1,10 +1,11 @@
-"""Decoder-LM assembly for the dense, rwkv6 and hybrid families: one
-forward covering train (no cache), prefill (cache fill at a reused-prefix
-offset) and decode (single step).  Layers are stacked on a leading L axis,
-as in the reference, and driven by a Python loop in place of ``lax.scan``.
+"""Decoder-LM assembly for the dense (GQA or MLA attention), moe, rwkv6
+and hybrid families: one forward covering train (no cache), prefill (cache
+fill at a reused-prefix offset) and decode (single step).  Layers are
+stacked on a leading L axis, as in the reference, and driven by a Python
+loop in place of ``lax.scan``.
 
-The moe, mla and encdec families are not ported yet; they raise
-``NotImplementedError`` naming their item in ROADMAP.md.
+The encdec family (Whisper) is not ported yet; it raises
+``NotImplementedError`` naming its item in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,16 +15,15 @@ from typing import Dict, Optional
 import torch
 
 from .common import Spec, tree_init
-from .layers import (PAGE, build_gqa_template, build_mlp_template, decode_index, gqa_attention,
+from .layers import (F32, PAGE, build_gqa_template, build_mla_template, build_mlp_template,
+                     build_moe_template, decode_index, gqa_attention, mla_attention, moe_layer,
                      rms_norm, swiglu_mlp)
 from .ssm import (build_mamba2_template, build_rwkv6_template, mamba2_init_state, mamba2_mix,
                   mamba2_state_specs, rwkv6_channel_mix, rwkv6_init_state, rwkv6_state_specs,
                   rwkv6_time_mix)
 
-PORTED = ("dense", "rwkv6", "hybrid")
+PORTED = ("dense", "moe", "mla", "rwkv6", "hybrid")
 _NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1 item 3 (MoE + MLA)",
-    "mla": "ROADMAP.md queue 1 item 3 (MoE + MLA)",
     "encdec": "ROADMAP.md queue 1 item 6 (Whisper enc-dec)",
 }
 
@@ -49,9 +49,17 @@ def build_block_template(cfg) -> Dict:
             "norm": Spec((cfg.d_model,), init="ones"),
             "mamba": build_mamba2_template(cfg),
         }
+    attn = build_mla_template(cfg) if cfg.attention == "mla" else build_gqa_template(cfg)
+    if cfg.family == "moe":
+        return {
+            "attn_norm": Spec((cfg.d_model,), init="ones"),
+            "attn": attn,
+            "moe_norm": Spec((cfg.d_model,), init="ones"),
+            "moe": build_moe_template(cfg),
+        }
     return {
         "attn_norm": Spec((cfg.d_model,), init="ones"),
-        "attn": build_gqa_template(cfg),
+        "attn": attn,
         "mlp_norm": Spec((cfg.d_model,), init="ones"),
         "mlp": build_mlp_template(cfg),
     }
@@ -105,10 +113,16 @@ def cache_len(max_seq: int) -> int:
 def cache_specs(cfg, batch: int, max_seq: int) -> Dict:
     """Shapes and dtypes of the serve-time cache (the object the LSM store
     persists block-wise): bf16 k/v of shape (sites, B, S, KVH, Dh) for the
-    attention layers, and the recurrent states of rwkv6 and hybrid."""
+    GQA layers, MLA's bf16 latent c (L, B, S, kv_lora_rank) and kr (L, B,
+    S, qk_rope_dim), and the recurrent states of rwkv6 and hybrid.  S is
+    ``cache_len(max_seq)``."""
     require_ported(cfg)
     if cfg.family == "rwkv6":
         return rwkv6_state_specs(cfg, batch)
+    if cfg.attention == "mla":
+        S = cache_len(max_seq)
+        return {"c": ((cfg.n_layers, batch, S, cfg.kv_lora_rank), torch.bfloat16),
+                "kr": ((cfg.n_layers, batch, S, cfg.qk_rope_dim), torch.bfloat16)}
     shape = (n_attn_sites(cfg), batch, cache_len(max_seq), cfg.n_kv_heads, cfg.d_head)
     if cfg.family == "hybrid":
         return {**mamba2_state_specs(cfg, batch),
@@ -147,13 +161,17 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     """tokens (B,S) int.  ``cache=None`` => training forward.  Otherwise the
     cache is consumed and updated in place at offset ``pos`` (an int).
     ``plain_kernels`` runs every kernel's plain version instead of the
-    kernel.  Returns (logits (B,S,V), cache, aux)."""
+    kernel.  Returns (logits (B,S,V), cache, aux); aux["aux_loss"] is an
+    f32 scalar tensor, the sum over moe layers of the reference's
+    mean-prob balance proxy n_experts·Σ me², me = probs.mean(0) (zero for
+    the other families).  MoE runs dropless whenever a cache is passed."""
     require_ported(cfg)
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
     blocks = params["blocks"]
+    aux = torch.zeros((), dtype=F32, device=dev)
 
     if cfg.family == "rwkv6":
         live = cache if cache is not None else rwkv6_init_state(cfg, B, dev)
@@ -189,17 +207,30 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
                 x = x + swiglu_mlp(sp["mlp"], rms_norm(x, sp["mlp_norm"]))
 
     else:
+        mla = cfg.attention == "mla"
         index = None
-        if cache is not None and S == 1:
+        if cache is not None and S == 1 and not mla:
             index = decode_index(B, cache["k"].shape[2], pos + 1, dev)
         for i in range(cfg.n_layers):
             bp = _layer(blocks, i)
-            layer_cache = None if cache is None else (cache["k"][i], cache["v"][i], pos)
-            h, _ = gqa_attention(bp["attn"], cfg, rms_norm(x, bp["attn_norm"]), positions, layer_cache,
-                                 q_offset=pos, plain_kernels=plain_kernels, index=index)
+            h = rms_norm(x, bp["attn_norm"])
+            if mla:
+                layer_cache = None if cache is None else (cache["c"][i], cache["kr"][i], pos)
+                h, _ = mla_attention(bp["attn"], cfg, h, positions, layer_cache,
+                                     q_offset=pos, plain_kernels=plain_kernels)
+            else:
+                layer_cache = None if cache is None else (cache["k"][i], cache["v"][i], pos)
+                h, _ = gqa_attention(bp["attn"], cfg, h, positions, layer_cache,
+                                     q_offset=pos, plain_kernels=plain_kernels, index=index)
             x = x + h
-            x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+            if cfg.family == "moe":
+                h, probs = moe_layer(bp["moe"], cfg, rms_norm(x, bp["moe_norm"]), dropless=cache is not None)
+                x = x + h
+                me = probs.mean(dim=0)
+                aux = aux + cfg.n_experts * torch.sum(me * me)  # the reference's mean-prob balance proxy
+            else:
+                x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
 
     x = rms_norm(x, params["final_norm"])
     logits = torch.matmul(x, params["lm_head"])
-    return logits, cache, {"aux_loss": 0.0}  # no family ported so far has an auxiliary loss
+    return logits, cache, {"aux_loss": aux}

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, quantize_ref
 from repro_torch.kernels.mamba2 import ssd, ssd_chunked, ssd_chunked_plain
 from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
 
@@ -85,6 +86,55 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, KVH, D, page, NB):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     if B > 1:
         assert out[0].abs().max().item() == 0.0  # kv_len = 0 gives zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,off", [(1, 128, 128, 40, 0), (2, 37, 100, 8, 63), (1, 1, 70, 4, 69)])
+def test_flash_kernel_with_v_head_dim_64_under_q_k_96(dev, dtype, B, Sq, Skv, H, off):
+    """MLA's shapes: q/k head dim 96, v head dim 64, scale 96^-0.5."""
+    g = torch.Generator(device=dev).manual_seed(Sq * 7 + Skv)
+    q, k = _randn(g, (B, Sq, H, 96), dtype, dev), _randn(g, (B, Skv, H, 96), dtype, dev)
+    v = _randn(g, (B, Skv, H, 64), dtype, dev)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash"] == 1 and out.shape == (B, Sq, H, 64) and out.dtype == dtype
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, True, off).float(), atol=atol, rtol=rtol)
+
+
+# the reference kernel test's tolerance (tests/test_kernels.py:27-30): q within
+# one step with under 1 % of entries differing, scale rtol 1e-6.  Kernel and
+# plain version do the same IEEE f32 division and round half to even, so
+# they are expected to agree bit for bit.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("shape", [(16, 81920), (16, 17856), (4, 8, 128), (3, 5, 96), (300, 130)])
+def test_kv_codec_kernels_match_plain(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _randn(g, shape, torch.float32, dev).mul_(4).to(dtype)
+    x[..., 3] = 0  # an all-zero channel: scale 1.0
+    reset_launch_counts()
+    q, s = quantize(x)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize"] == 1 and q.shape == x.shape and s.shape == (shape[-1],)
+    qr, sr = quantize_ref(x)
+    diff = (q.int() - qr.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 0.01
+    torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
+    assert float(s[3]) == 1.0 and not q[..., 3].any()
+    for out in (torch.bfloat16, torch.float32, torch.float16):
+        d = dequantize(q, s, out_dtype=out)
+        torch.cuda.synchronize()
+        assert d.dtype == out and d.shape == x.shape
+        torch.testing.assert_close(d.float(), dequantize_ref(q, s, out).float(), rtol=0, atol=0)
+    assert launch_counts()["dequantize"] == 3
+
+
+def test_kv_codec_reads_a_row_strided_view(dev):
+    x = torch.randn(32, 256, device=dev)[:, :200]  # rows 256 apart, 200 channels
+    q, s = quantize(x)
+    qr, sr = quantize_ref(x)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -31,7 +31,7 @@ def test_port_imports_and_prefills_with_jax_and_repro_blocked():
         import torch
         from repro_torch.configs import get_config
         from repro_torch.models import api
-        for arch in ("qwen3-14b", "rwkv6-1.6b", "zamba2-1.2b"):
+        for arch in ("qwen3-14b", "rwkv6-1.6b", "zamba2-1.2b", "olmoe-1b-7b", "minicpm3-4b"):
             cfg = get_config(arch, smoke=True)
             params = api.init_params(cfg, 0, "cpu")
             logits, cache = api.prefill_fn(cfg)(params, {"tokens": torch.arange(8)[None]},
@@ -55,7 +55,7 @@ def test_no_module_of_the_port_names_jax_or_the_reference():
 
 
 def test_kernel_build_command_targets_hopper():
-    assert _build.kernel_names() == ["decode_attention", "flash_attention", "mamba2", "rwkv6"]
+    assert _build.kernel_names() == ["decode_attention", "flash_attention", "kv_codec", "mamba2", "rwkv6"]
     for name in _build.kernel_names():
         assert _build.source_path(name).exists()
         lib = _build.library_path(name)
@@ -95,7 +95,7 @@ def test_launch_counters_count_only_kernel_launches():
 
     from repro_torch.kernels.decode_attention import paged_decode
     from repro_torch.kernels.flash_attention import flash_attention
-
+    from repro_torch.kernels.kv_codec import dequantize, quantize
     from repro_torch.kernels.mamba2 import ssd
     from repro_torch.kernels.rwkv6 import wkv_model
 
@@ -107,5 +107,6 @@ def test_launch_counters_count_only_kernel_launches():
     wkv_model(q, q, q, torch.ones(1, 4, 2, 16), torch.zeros(2, 16), torch.zeros(1, 2, 16, 16))
     ssd(q, torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.ones(1, 4, 2), torch.zeros(1, 4, 2),
         torch.zeros(1, 2, 16, 8))
+    dequantize(*quantize(q))
     # CPU tensors take the plain versions
-    assert launch_counts() == {"flash": 0, "paged_decode": 0, "wkv": 0, "ssd": 0}
+    assert launch_counts() == {"flash": 0, "paged_decode": 0, "wkv": 0, "ssd": 0, "quantize": 0, "dequantize": 0}
