@@ -6,18 +6,22 @@
 Phases, in order, one line each:
   1. device        card name and power limit (nvidia-smi), torch and CUDA versions
   2. build         compile every kernel from the sources in the checkout (nvcc)
+     design        which design each attention kernel runs, as its library
+                   reports it (wgmma, mma.sync or FMA); paged decode's split
+                   count (n_splits x split_len) at three shapes
   3. flash         flash-attention kernel vs its plain version on the card, bf16
                    and f32, at the serve path's shape, zamba2's (H 32, KVH 32,
                    D 64), olmoe's (H 16, KVH 16, D 128) and minicpm3's MLA
                    prefill (H 40, q/k head dim 96, v head dim 64), ragged-offset
-                   cases over strided cache slices, and a 4096-token prefill;
-                   device times (CUDA-graph replay) of kernel, plain version
-                   and SDPA (yardstick only: the port never calls it)
+                   cases over strided cache slices, and 4096-token prefills at
+                   qwen3-14b's, minicpm3's and zamba2's head shapes; device
+                   times (CUDA-graph replay) of kernel, plain version and SDPA
+                   (yardstick only: the port never calls it)
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
                    shape, zamba2's and olmoe's (kv_len 129..136, bf16 and f32), a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
-                   one kv_len = 0 row; the paged-pool staging check; times as
-                   above
+                   one kv_len = 0 row, one 4096-token sequence; the paged-pool
+                   staging check; times as above
   5. serve         full-width qwen3-14b through launch.serve_e2e.main: staged
                    workload -> ServingEngine -> CacheHierarchy -> 4-shard
                    ShardedKVBlockStore on disk, real prefill and greedy decode;
@@ -187,12 +191,22 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import _build
+    import torch
+
+    from repro_torch.kernels import _build, decode_attention, flash_attention
 
     t0 = time.perf_counter()
     per = _build.build_all()
     line("build", seconds=f"{time.perf_counter() - t0:.2f}",
          kernels=",".join(f"{k}:{v:.2f}s" for k, v in per.items()), dir=_build.BUILD_DIR)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {label: "x".join(map(str, decode_attention.split_plan(B, 8, NB * 16, sms)))
+             for label, B, NB in (("serve", 1, 9), ("batch32", 32, 256), ("one4096", 1, 256))}
+    # the designs as the built libraries report them
+    line("design", flash_bf16=flash_attention.design(torch.bfloat16), flash_f32=flash_attention.design(torch.float32),
+         paged_decode_bf16=decode_attention.design(torch.bfloat16),
+         paged_decode_f32=decode_attention.design(torch.float32),
+         paged_decode_splits=f"sms{sms}," + ",".join(f"{k}={v}" for k, v in plans.items()))
 
 
 def _flash_bound(B, Sq, Skv, H, KVH, D, q_offset, causal=True, Dv=None):
@@ -314,6 +328,26 @@ def phase_flash():
          bound_by=large["bound_by"])
     del qL, kL, vL, qLt, kLt, vLt
     torch.cuda.empty_cache()
+
+    # 4096-token prefills at minicpm3's MLA head dims and zamba2's G 1, D 64
+    for label, Hl, KVHl, Dl, Dvl in (("large_minicpm3", 40, 40, 96, 64), ("large_zamba2", 32, 32, 64, 64)):
+        ql, kl, vl = rand(1, SL, Hl, Dl), rand(1, SL, KVHl, Dl), rand(1, SL, KVHl, Dvl)
+        errl, sharel = assert_bf16(f"flash {label}", flash_attention(ql, kl, vl, causal=True),
+                                   flash_attention_plain(ql, kl, vl, True, 0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], errl)
+        qlt, klt, vlt = ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2)
+        boundl = _flash_bound(1, SL, SL, Hl, KVHl, Dl, 0, Dv=Dvl)
+        rec[label] = {"shape": f"B1 S{SL} H{Hl} KVH{KVHl} D{Dl} Dv{Dvl} causal bf16", "max_abs_err": errl,
+                      "ms": time_ms(lambda: flash_attention(ql, kl, vl, causal=True), 5, reps=3),
+                      "plain_ms": time_ms(lambda: flash_attention_plain(ql, kl, vl, True, 0), 2, reps=3),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qlt, klt, vlt, is_causal=True),
+                                            5, reps=3),
+                      "bound_ms": boundl[0], "bound_by": boundl[1]}
+        line("flash", case=rec[label]["shape"], max_abs_err=f"{errl:.3e}", tol=BF16_LIMIT, of_limit=f"{sharel:.3f}",
+             kernel_ms=f"{rec[label]['ms']:.4f}", plain_ms=f"{rec[label]['plain_ms']:.4f}",
+             library_ms=f"{rec[label]['library_ms']:.4f}", bound_ms=f"{boundl[0]:.4f}", bound_by=boundl[1])
+        del ql, kl, vl, qlt, klt, vlt
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -433,6 +467,29 @@ def phase_paged_decode():
          library_ms=f"{large['library_ms']:.4f}", bound_ms=f"{large['bound_ms']:.4f}",
          bound_by=large["bound_by"], kv_tokens=lens_sum)
     del kpb, vpb, sk, sv
+    torch.cuda.empty_cache()
+
+    # one 4096-token sequence (B 1): the case that splitting the KV range is for
+    NBl = 256
+    kpl, vpl = rand(NBl, page, KVH, D), rand(NBl, page, KVH, D)
+    tabl = torch.randperm(NBl, generator=g, device=dev).to(torch.int32).view(1, NBl).contiguous()
+    lensl = torch.tensor([NBl * page], dtype=torch.int32, device=dev)
+    ql = rand(1, H, D)
+    errl, sharel = assert_bf16("paged_decode one long sequence", paged_decode(ql, kpl, vpl, tabl, lensl),
+                               paged_decode_ref(ql, kpl, vpl, tabl, lensl))
+    rec["max_abs_err"] = max(rec["max_abs_err"], errl)
+    sq, sk, sv, _ = _dense_sdpa_inputs(ql, kpl, vpl, tabl, lensl)
+    boundl = _decode_bound(1, H, KVH, D, NBl * page, NBl)
+    rec["large_one"] = {"shape": f"B1 H{H} KVH{KVH} D{D} page16 kv_len{NBl * page} shuffled bf16", "max_abs_err": errl,
+                        "ms": time_ms(lambda: paged_decode(ql, kpl, vpl, tabl, lensl), 200),
+                        "plain_ms": time_ms(lambda: paged_decode_ref(ql, kpl, vpl, tabl, lensl), 20),
+                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True), 200),
+                        "bound_ms": boundl[0], "bound_by": boundl[1]}
+    line("paged_decode", case=rec["large_one"]["shape"], max_abs_err=f"{errl:.3e}", tol=BF16_LIMIT,
+         of_limit=f"{sharel:.3f}", kernel_ms=f"{rec['large_one']['ms']:.5f}",
+         plain_ms=f"{rec['large_one']['plain_ms']:.5f}", library_ms=f"{rec['large_one']['library_ms']:.5f}",
+         bound_ms=f"{boundl[0]:.5f}", bound_by=boundl[1])
+    del kpl, vpl, sk, sv
     torch.cuda.empty_cache()
 
     # staging check: promote blocks into a pool on the card, decode per layer,
@@ -1236,7 +1293,7 @@ def kernels_line(recs, counts):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
             "large": rec["large"],
         }
-        for extra in ("olmoe", "minicpm3", "zamba2", "slab"):
+        for extra in ("olmoe", "minicpm3", "zamba2", "slab", "large_minicpm3", "large_zamba2", "large_one"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if entry["library_ms"] is None:

@@ -1,1 +1,1 @@
-from .ops import paged_decode, paged_decode_ref  # noqa: F401
+from .ops import design, paged_decode, paged_decode_ref, split_plan  # noqa: F401

@@ -3,11 +3,16 @@
 A CUDA tensor launches ``csrc/decode_attention.cu``; a CPU tensor takes the
 plain version in ``ref.py``; any other device raises.  There is no
 fallback from the kernel to the plain version.
+
+The kernel splits each (sequence, KV head)'s slot range across blocks and
+joins the partial softmaxes in a second kernel; ``split_plan`` picks the
+split from shapes alone, so no call reads ``kv_len`` on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,6 +25,37 @@ launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may use on sm_90
+# the split rule: at most SPLIT_MAX_TOKENS slots per block, so one long
+# sequence is not one block's serial walk; about two blocks per SM when
+# B·KVH is small; no split under SPLIT_MIN_TOKENS slots; split lengths a
+# multiple of SPLIT_ALIGN slots
+SPLIT_MIN_TOKENS = 32
+SPLIT_MAX_TOKENS = 512
+SPLIT_ALIGN = 16
+BLOCKS_PER_SM = 2
+
+
+def split_plan(B: int, KVH: int, slots: int, sm_count: int):
+    """(n_splits, split_len) for B sequences of KVH heads over a block
+    table of ``slots`` = NB·page slots on a card of ``sm_count`` SMs.
+    Split s covers slots [s·split_len, (s+1)·split_len); the splits cover
+    every slot of the table.  Reads no kv_len: a split that starts at or
+    past a row's kv_len is empty and its block exits."""
+    if slots <= 0:
+        return 1, SPLIT_ALIGN
+    want = max(_cdiv(BLOCKS_PER_SM * sm_count, max(1, B * KVH)), _cdiv(slots, SPLIT_MAX_TOKENS))
+    n = max(1, min(want, _cdiv(slots, SPLIT_MIN_TOKENS)))
+    split_len = _cdiv(_cdiv(slots, n), SPLIT_ALIGN) * SPLIT_ALIGN
+    return _cdiv(slots, split_len), split_len
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
@@ -66,30 +102,39 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("k/v pages must start on 16 bytes (the kernel gathers 16-byte loads)")
+        raise ValueError("k/v pages must start on 16 bytes (the kernel gathers 16-byte copies)")
     lib = _build.bind("decode_attention", _SIGNATURES)
-    if lib.paged_decode_smem_bytes(G, D) > SMEM_LIMIT:
+    if lib.paged_decode_smem_bytes(DTYPE_CODES[q.dtype], G, D) > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D} needs more shared memory than one block has")
     o = torch.empty_like(q)
     if B == 0:
         return o
+    n_splits, split_len = split_plan(B, KVH, NB * page, _sm_count(q.device))
+    part_ml = torch.empty((B, KVH, n_splits, G, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, KVH, n_splits, G, D), dtype=torch.float32, device=q.device)
     _build.call(lib, "paged_decode", "paged_decode_fwd", q.device,
                 DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                block_tables.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-                B, KVH, G, D, page, NB, float(D**-0.5))
+                block_tables.data_ptr(), kv_len.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                o.data_ptr(), B, KVH, G, D, page, NB, n_splits, split_len, float(D**-0.5))
     launches += 1
     return o
+
+
+def design(dtype: torch.dtype) -> str:
+    """The split kernel the library runs for ``dtype``, as it reports it."""
+    return _build.bind("decode_attention", _SIGNATURES).paged_decode_design(DTYPE_CODES[dtype]).decode()
 
 
 _SIGNATURES = {
     "paged_decode_fwd": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]),
-    "paged_decode_smem_bytes": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int]),
+    "paged_decode_smem_bytes": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "paged_decode_design": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-__all__ = ["paged_decode", "paged_decode_ref"]
+__all__ = ["design", "paged_decode", "paged_decode_ref", "split_plan"]

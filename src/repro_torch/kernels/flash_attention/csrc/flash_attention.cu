@@ -12,25 +12,47 @@
 // What bounds it on an H100: at the serve path's shapes (one 128-token
 // prompt, 40 heads of 128) it moves ~3 MB and does ~0.2 GFLOP, so device
 // memory bounds it at under a microsecond and launch overhead sets the
-// time.  At long prompts the QK^T and PV products make it compute bound.
+// time.  At long prompts the Q·Kᵀ and P·V products make it compute bound
+// (S 4096, 40 heads of 128: 172 GFLOP, 0.17 ms at the bf16 tensor peak).
 //
-// Design.  The TPU kernel walks a sequential grid axis over key blocks and
-// carries (m, l, acc) in VMEM scratch between grid steps.  Blocks on a GPU
-// run in no order, so here one thread block owns one (b, h, 64-row query
-// tile) and loops over 64-key tiles itself, up to the last key its causal
-// rows can see (fully masked tiles are never loaded).  Q, K and V tiles
-// are staged in shared memory in their own dtype (bf16 halves the bytes
-// against f32); scores, running max and sum, and the accumulator stay in
-// f32 registers.  128 threads form a 16 x 8 grid: each thread holds a 4 x 8
-// block of scores and a 4 x (DV/8) block of the accumulator.  Ragged query
-// and key edges are masked in the kernel, so the wrapper makes no padded
-// copies; batch and sequence strides come from the caller, so a slice of
-// the KV cache is read in place.  Tiles are loaded with 16-byte loads, a
-// thread's loads all in flight before its stores.  The products run on
-// the FMA units, not the tensor cores: wgmma, TMA and a producer warp are
-// later work.
+// The TPU kernel walks a sequential grid axis over key blocks and carries
+// (m, l, acc) in VMEM scratch between grid steps.  Blocks on a GPU run in
+// no order, so here one thread block owns one (b, h, query tile) and loops
+// over 64-key tiles itself, up to the last key its causal rows can see
+// (fully masked tiles are never loaded).  Ragged query and key edges are
+// masked in the kernel, so the wrapper makes no padded copies; batch and
+// sequence strides come from the caller, so a slice of the KV cache is
+// read in place.  Two instances:
+//
+// bf16: tensor cores (flash_bf16_kernel).  A block of two warpgroups owns
+// 128 query rows, 64 per warpgroup.  Q·Kᵀ is wgmma m64n64k16 with Q and K
+// from shared memory (128-byte swizzle, see wgmma.cuh); the scores stay
+// in f32 registers for the online softmax (exp2 of log2-scaled scores).
+// P·V is wgmma m64nDVk16 with P from registers and V read transposed from
+// shared memory, into an f32 accumulator in registers.  P is split into
+// P_hi = bf16(P) and P_lo = bf16(P - P_hi), two products against the same
+// V tile: a P rounded to bf16 alone loses 2^-9 per term, and where an
+// output cancels to near zero that breaks the 1e-4 + 2^-6|ref| limit the
+// kernel is held to (22x over it at the serve shape, in a model of this
+// tile loop on the CPU, ``ref.py::flash_tiles_plain``); hi + lo keeps
+// ~2^-17, as close to the plain version as an f32 P.  So the kernel does
+// 1.5x the tensor work of a bf16-P flash kernel.  K and V tiles arrive by
+// cp.async into a ring of two shared-memory stages, tile j+1 in flight
+// while tile j computes.  Two blocks share an SM, so that one block's
+// softmax runs while the other's products hold the tensor cores.  Causal blocks are launched heaviest first (the
+// query tile index runs backwards over the grid's slowest axis), so the
+// short tiles fill the tail.
+//
+// f32: FMA units (flash_fwd_kernel), kept for the f32 weights: TF32 keeps
+// ~10 bits and would break the 1e-4 limit.  One block of 128 threads owns
+// 64 query rows as a 16 x 8 grid, each thread a 4 x 8 block of scores and
+// a 4 x (DV/8) block of the accumulator; Q, K, V tiles staged in shared
+// memory with 16-byte loads, P through a shared f32 tile.
 
 #include "kernel_common.cuh"
+#include "wgmma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -223,21 +245,276 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 }
 
+// ---------------------------------------------------------------- bf16: wgmma
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;             // query rows per block: two warpgroups of 64
+constexpr int BK = 64;              // keys per tile
+constexpr int THREADS = 256;
+constexpr int STAGES = 2;           // K/V ring depth
+// two blocks per SM (registers capped at 128 a thread): one block's softmax
+// runs while the other's products hold the tensor cores.  At D 128 the
+// kernel needs the cap to get there, and ran faster on the H100 with it
+// than at one block per SM; at D <= 96 it fits 128 registers either way
+// (PERF.md, Findings).
+constexpr int MIN_BLOCKS = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// column blocks of 64 in a swizzled tile (wgmma.cuh) and the P·V width:
+// DV 32 runs as n64 over a half-filled V block, its upper 32 output
+// columns discarded (each output column depends on its own V column only)
+template <int D> struct Blocks { static constexpr int value = (D + 63) / 64; };
+template <int DV> struct PvN { static constexpr int value = DV <= 64 ? 64 : 128; };
+
+template <int D, int DV>
+constexpr size_t smem_bytes() {
+    return 1024  // alignment slack: swizzled blocks start on 1024 bytes
+         + sizeof(bf16) * 64 * ((size_t)Blocks<D>::value * BQ
+                                + (size_t)STAGES * (Blocks<D>::value + Blocks<DV>::value) * BK);
+}
+
+// copy ROWS rows of COLS elements (row r at src + r * stride) into a
+// swizzled tile of ROWS rows, 16 bytes per cp.async; rows at or past
+// n_rows are zero-filled and read nothing
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_async(bf16* dst, const bf16* src, int64_t stride, int n_rows, int tid) {
+    constexpr int CPR = COLS / 8;  // 16-byte chunks per row
+    constexpr int N = ROWS * CPR;
+#pragma unroll
+    for (int i = tid; i < N; i += THREADS) {
+        const int r = i / CPR, c = (i % CPR) * 8;
+        const bool ok = r < n_rows;
+        kernel_common::cp_async16(dst + wgmma::swz(r, c, ROWS), ok ? src + r * stride + c : src, ok ? 16 : 0);
+    }
+}
+
+// 2^x to ~2 ulp, denormal results flushed to zero (a weight under 2^-126
+// of the row's largest is 0 to the f32 sums anyway); 2^-inf = 0
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+template <int NV>
+__device__ __forceinline__ void mma_pv(float (&o)[NV / 2], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (NV == 64) wgmma::mma_rs_n64(o, a, db, 1);
+    else wgmma::mma_rs_n128(o, a, db, 1);
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                  bf16* __restrict__ o, int H, int KVH, int Sq, int Skv,
+                  int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                  int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                  int causal, int q_offset, float scale) {
+    constexpr int DB = Blocks<D>::value, DVB = Blocks<DV>::value, NV = PvN<DV>::value;
+    constexpr int Q_ELEMS = DB * BQ * 64, K_ELEMS = DB * BK * 64, V_ELEMS = DVB * BK * 64;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    bf16* Ks = Qs + Q_ELEMS;                  // [STAGES][K_ELEMS]
+    bf16* Vs = Ks + STAGES * K_ELEMS;         // [STAGES][V_ELEMS]
+
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest causal tiles first
+    const int kvh = h / (H / KVH);
+    const int tid = threadIdx.x;
+    // the warpgroup index through a shuffle, so the compiler sees it is the
+    // same across each warp: a branch on it is not divergent, and wgmma in
+    // it is not serialized
+    const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+
+    const bf16* qb = q + b * q_sb + (int64_t)h * D + (int64_t)q0 * q_ss;
+    const bf16* kb = k + b * k_sb + (int64_t)kvh * D;
+    const bf16* vb = v + b * v_sb + (int64_t)kvh * DV;
+
+    // keys the block's rows can see, and this warpgroup's rows
+    const int rows_end = min(q0 + BQ, Sq);
+    const int kv_end = causal ? min(Skv, q_offset + rows_end) : Skv;
+    const int n_tiles = (kv_end + BK - 1) / BK;
+    const int wq0 = q0 + 64 * wg;  // first row of this warpgroup
+    int wg_tiles = 0;
+    if (wq0 < Sq) {
+        const int wg_end = causal ? min(Skv, q_offset + min(wq0 + 64, Sq)) : Skv;
+        wg_tiles = (wg_end + BK - 1) / BK;
+    }
+
+    auto load_kv = [&](int tile) {
+        const int k0 = tile * BK, st = tile % STAGES;
+        load_async<BK, D>(Ks + st * K_ELEMS, kb + (int64_t)k0 * k_ss, k_ss, Skv - k0, tid);
+        load_async<BK, DV>(Vs + st * V_ELEMS, vb + (int64_t)k0 * v_ss, v_ss, Skv - k0, tid);
+    };
+    load_async<BQ, D>(Qs, qb, q_ss, Sq - q0, tid);
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) {
+        if (t < n_tiles) load_kv(t);
+        kernel_common::cp_async_commit();  // Q rides in the first group
+    }
+
+    // this thread's two rows (wgmma accumulator layout) and their state
+    const int r_lo = wq0 + 16 * warp + lane / 4;      // and r_lo + 8
+    const int pos_lo = q_offset + r_lo;
+    const float sl2 = scale * LOG2E;
+    float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;  // l: this thread's columns only
+    float acc[NV / 2];
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) acc[i] = 0.f;
+
+    const uint64_t dq = wgmma::desc(Qs + wg * 64 * 64, 16, 1024);
+    const uint64_t dk0 = wgmma::desc(Ks, 16, 1024);
+    const uint64_t dv0 = wgmma::desc(Vs, BK * 128, 1024);
+
+    for (int j = 0; j < n_tiles; ++j) {
+        kernel_common::cp_async_wait<STAGES - 2>();
+        wgmma::fence_proxy_async();
+        __syncthreads();  // tile j landed for every thread; tile j-1's stage is free
+        const bool active = j < wg_tiles;  // false: every row of this warpgroup is past this tile
+        const int k0 = j * BK, st = j % STAGES;
+        // S = Q·Kᵀ, 64 x 64 per warpgroup, issued before the next tile's
+        // copies so that their address arithmetic runs beside the product
+        float s[32];
+        if (active) {
+            wgmma::fence();
+            const uint64_t dk = dk0 + ((uint64_t)(st * K_ELEMS * 2) >> 4);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t q_off = ((kk / 4) * BQ * 128 + (kk % 4) * 32) >> 4;
+                const uint32_t k_off = ((kk / 4) * BK * 128 + (kk % 4) * 32) >> 4;
+                wgmma::mma_ss_n64(s, dq + q_off, dk + k_off, kk > 0);  // kk 0 overwrites s
+            }
+            wgmma::commit();
+        }
+        if (j + STAGES - 1 < n_tiles) load_kv(j + STAGES - 1);
+        kernel_common::cp_async_commit();
+        if (!active) continue;
+        wgmma::wait<0>();
+        wgmma::fence_regs(s);
+
+        // online softmax over this tile, scores in log2 units
+        const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q_offset + wq0);
+        float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            float x = s[i] * sl2;
+            if (edge) {
+                const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+                const int pos = pos_lo + ((i % 4) >= 2 ? 8 : 0);
+                if (col >= Skv || (causal && col > pos)) x = -INFINITY;
+            }
+            s[i] = x;
+            if ((i % 4) < 2) mx_lo = fmaxf(mx_lo, x);
+            else mx_hi = fmaxf(mx_hi, x);
+        }
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+        const float c_lo = fast_exp2(m_lo - mn_lo), c_hi = fast_exp2(m_hi - mn_hi);
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+        float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const float p = fast_exp2(s[i] - ((i % 4) < 2 ? mn_lo : mn_hi));  // masked: 0
+            s[i] = p;
+            if ((i % 4) < 2) sum_lo += p;
+            else sum_hi += p;
+        }
+        l_lo = l_lo * c_lo + sum_lo;
+        l_hi = l_hi * c_hi + sum_hi;
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) acc[i] *= (i % 4) < 2 ? c_lo : c_hi;
+
+        // O += P_hi·V + P_lo·V
+        wgmma::fence_regs(acc);
+        wgmma::fence();
+        const uint64_t dv = dv0 + ((uint64_t)(st * V_ELEMS * 2) >> 4);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                // registers 8kk + 2r, 8kk + 2r + 1: rows lo/hi alternate with r,
+                // columns +8 for r >= 2
+                const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
+                const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+                hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
+                lo[r] = wgmma::pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+            }
+            const uint64_t dvk = dv + ((uint64_t)(kk * 16 * 128) >> 4);
+            mma_pv<NV>(acc, hi, dvk);
+            mma_pv<NV>(acc, lo, dvk);
+        }
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(acc);
+    }
+    kernel_common::cp_async_wait<0>();  // no copy outlives the block
+
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    bf16* ob = o + b * o_sb + (int64_t)h * DV;
+#pragma unroll
+    for (int jn = 0; jn < DV / 8; ++jn) {
+        const int col = 8 * jn + 2 * (lane % 4);
+        if (r_lo < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)r_lo * o_ss + col) =
+                __floats2bfloat162_rn(acc[4 * jn] * inv_lo, acc[4 * jn + 1] * inv_lo);
+        if (r_lo + 8 < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)(r_lo + 8) * o_ss + col) =
+                __floats2bfloat162_rn(acc[4 * jn + 2] * inv_hi, acc[4 * jn + 3] * inv_hi);
+    }
+}
+
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+           int Sq, int Skv, const int64_t* st, int causal, int q_offset, float scale,
+           cudaStream_t stream) {
+    const size_t smem = smem_bytes<D, DV>();
+    auto kern = flash_bf16_kernel<D, DV>;
+    static kernel_common::SmemGrant grant;
+    cudaError_t e = grant.ensure(kern, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+    kern<<<grid, THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), H, KVH, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5],
+        st[6], st[7], causal, q_offset, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// the kernel each dtype runs: bf16 on the tensor cores, f32 on the FMA
+// units (launch() branches on it, flash_attention_design reports it)
+template <typename T> constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16>;
+
 template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
            int Sq, int Skv, const int64_t* st, int causal, int q_offset, float scale,
            cudaStream_t stream) {
-    const size_t smem = smem_bytes<T, D, DV>();
-    auto kern = flash_fwd_kernel<T, D, DV>;
-    static kernel_common::SmemGrant grant;  // one size per instantiation
-    cudaError_t e = grant.ensure(kern, smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    kern<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, KVH, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], causal, q_offset, scale);
-    return (int)cudaGetLastError();
+    if constexpr (kTensorCores<T>) {
+        return tc::launch<D, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    } else {
+        const size_t smem = smem_bytes<T, D, DV>();
+        auto kern = flash_fwd_kernel<T, D, DV>;
+        static kernel_common::SmemGrant grant;  // one size per instantiation
+        cudaError_t e = grant.ensure(kern, smem);
+        if (e != cudaSuccess) return (int)e;
+        dim3 grid((Sq + BQ - 1) / BQ, H, B);
+        kern<<<grid, THREADS, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<T*>(o), H, KVH, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5],
+            st[6], st[7], causal, q_offset, scale);
+        return (int)cudaGetLastError();
+    }
 }
 
 // (D, DV) pairs with an instance: D = DV at 32, 64 and 128, and MLA's (96, 64).
@@ -279,6 +556,12 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, 
 
 const char* flash_attention_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// the kernel's design for a dtype (as above), the name chip_smoke.py prints
+const char* flash_attention_design(int dtype) {
+    const bool tensor_cores = dtype == 0 ? kTensorCores<float> : kTensorCores<__nv_bfloat16>;
+    return tensor_cores ? "wgmma_m64nNk16" : "fma";
 }
 
 }  // extern "C"

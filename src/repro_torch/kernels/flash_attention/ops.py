@@ -86,6 +86,11 @@ def _launch(q, k, v, causal: bool, q_offset: int):
     return o
 
 
+def design(dtype: torch.dtype) -> str:
+    """The kernel the library runs for ``dtype``, as it reports it."""
+    return _build.bind("flash_attention", _SIGNATURES).flash_attention_design(DTYPE_CODES[dtype]).decode()
+
+
 _SIGNATURES = {
     "flash_attention_fwd": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -93,7 +98,8 @@ _SIGNATURES = {
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p,
     ]),
+    "flash_attention_design": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-__all__ = ["flash_attention", "attention_ref", "flash_attention_plain"]
+__all__ = ["design", "flash_attention", "attention_ref", "flash_attention_plain"]

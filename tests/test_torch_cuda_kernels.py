@@ -16,9 +16,14 @@ from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, q
 from repro_torch.kernels.mamba2 import ssd, ssd_chunked, ssd_chunked_plain
 from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
 
-# (atol, rtol).  bf16: kernel and plain version both round an f32 result to
-# bf16, so they differ by at most one bf16 step (2^-7 of the value); two are
-# allowed, and the atol covers outputs near zero.  f32: summation order.
+# (atol, rtol).  bf16: the plain version computes in f32 and rounds once to
+# bf16.  The flash kernel's products run on tensor cores, with P·V split into
+# bf16 P_hi and P_lo, which keeps P to ~2^-17 (a P rounded to bf16 alone
+# would break the atol where outputs cancel to near zero); paged decode
+# computes in f32.  So kernel and plain version differ by at most about one
+# bf16 step of the output (2^-7 of the value); two are allowed, and the atol
+# covers outputs near zero, where the kernels' f32 sums differ in order.
+# f32: summation order.
 TOL = {torch.bfloat16: (1e-4, 2.0**-6), torch.float32: (1e-4, 1e-4)}
 # The scans: the reference kernel tests' own tolerances (tests/test_kernels.py:104,141);
 # kernel and plain version do the same f32 operations, the sums in another order.
@@ -42,6 +47,10 @@ def _randn(gen, shape, dtype, dev):
     (2, 37, 100, 8, 2, 64, True),      # q_offset 63, ragged tiles
     (1, 1, 70, 4, 4, 32, True),        # one query
     (2, 64, 192, 8, 8, 128, False),    # non-causal, Skv a block multiple
+    (1, 1, 4096, 8, 2, 128, False),    # one query over 64 key tiles
+    (1, 65, 4096, 8, 2, 128, True),    # q_offset 4031: a 128-row tile with 63 empty rows
+    (1, 129, 4096, 8, 2, 128, False),  # two query tiles, the second with one row
+    (2, 65, 4096, 16, 16, 64, True),   # D 64, G 1, q_offset 4031
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, Sq, Skv, H, KVH, D, causal):
     g = torch.Generator(device=dev).manual_seed(Sq + Skv)
@@ -68,7 +77,12 @@ def test_flash_kernel_reads_a_strided_cache_slice(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,KVH,D,page,NB", [(1, 40, 8, 128, 16, 9), (4, 8, 2, 64, 8, 12), (3, 4, 4, 32, 32, 3)])
+@pytest.mark.parametrize("B,H,KVH,D,page,NB", [
+    (1, 40, 8, 128, 16, 9), (4, 8, 2, 64, 8, 12), (3, 4, 4, 32, 32, 3),
+    (2, 32, 1, 64, 16, 6),     # G 32: bf16 runs two groups of 16 query rows
+    (3, 48, 2, 128, 16, 9),    # G 24: a full group and a group of 8
+    (2, 32, 1, 64, 16, 64),    # G 32 over 32 splits of 32 slots
+])
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, KVH, D, page, NB):
     g = torch.Generator(device=dev).manual_seed(B * 100 + D)
     P = B * NB + 3
@@ -86,6 +100,31 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, KVH, D, page, NB):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     if B > 1:
         assert out[0].abs().max().item() == 0.0  # kv_len = 0 gives zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page,NB,lens", [
+    (64, 2, [100, 31]),         # splits of 32 slots end inside pages of 64
+    (16, 9, [7, 32]),           # every split but the first empty, and one exactly full
+    (16, 256, [4096, 0]),       # a 4096-token row over 8 splits beside a kv_len = 0 row
+])
+def test_paged_decode_kernel_across_splits(dev, dtype, page, NB, lens):
+    from repro_torch.kernels.decode_attention import split_plan
+    g = torch.Generator(device=dev).manual_seed(page + NB)
+    B, H, KVH, D = len(lens), 40, 8, 128
+    n_splits, split_len = split_plan(B, KVH, NB * page, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_splits > 1
+    P = B * NB + 1
+    q = _randn(g, (B, H, D), dtype, dev)
+    kp, vp = _randn(g, (P, page, KVH, D), dtype, dev), _randn(g, (P, page, KVH, D), dtype, dev)
+    tables = torch.randperm(P, generator=g, device=dev)[:B * NB].to(torch.int32).view(B, NB).contiguous()
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = paged_decode(q, kp, vp, tables, kv_len)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), paged_decode_ref(q, kp, vp, tables, kv_len).float(), atol=atol, rtol=rtol)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert out[i].abs().max().item() == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -11,7 +11,8 @@ from parity_harness import BF16_TOL, F32_TOL, jax_from, np32, torch_from
 
 from repro.kernels.decode_attention import paged_decode as jax_paged_decode
 from repro.kernels.decode_attention import paged_decode_ref as jax_paged_decode_ref
-from repro_torch.kernels.decode_attention import paged_decode
+from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref, split_plan
+from repro_torch.kernels.decode_attention.ref import paged_decode_split_plain
 
 
 def _inputs(seed, B, H, KVH, D, page, NB, P, lo=1):
@@ -85,3 +86,58 @@ def test_paged_decode_wrapper_checks_its_inputs():
         paged_decode(q, kp, kp, torch.zeros(2, 2, dtype=torch.int32), lens)
     with pytest.raises(ValueError):  # neither the card nor the CPU: no plain fallback
         paged_decode(*(t.to("meta") for t in (q, kp, kp, tables, lens)))
+
+
+# The kernel's split-KV arithmetic (paged_decode_split_plain: the slot range
+# cut by ops.split_plan, a partial softmax per split, the join) against the
+# plain version, in f32.  H100: 132 SMs.
+H100_SMS = 132
+
+
+def test_split_plan_at_the_serve_and_batch_shapes():
+    # serve: qwen3-14b, one sequence, 8 KV heads, 9 pages of 16 -> 5 splits of 32 (40 blocks)
+    assert split_plan(1, 8, 9 * 16, H100_SMS) == (5, 32)
+    # a batch of 32 over 256 pages: no block walks more than 512 slots
+    assert split_plan(32, 8, 256 * 16, H100_SMS) == (8, 512)
+    # one 4096-token sequence: 32 splits of 128, 256 blocks
+    assert split_plan(1, 8, 256 * 16, H100_SMS) == (32, 128)
+    for B, KVH, slots in ((1, 8, 144), (32, 8, 4096), (3, 2, 77), (2, 32, 16), (1, 1, 1)):
+        n, length = split_plan(B, KVH, slots, H100_SMS)
+        assert (n - 1) * length < slots <= n * length and length % 16 == 0
+
+
+def _split_case(seed, B, KVH, G, D, page, NB, lens):
+    rng = np.random.default_rng(seed)
+    P = B * NB + 2
+    q = torch_from(rng.standard_normal((B, KVH * G, D)))
+    kp, vp = (torch_from(rng.standard_normal((P, page, KVH, D))) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(P)[:B * NB].astype(np.int32).reshape(B, NB))
+    return q, kp, vp, tables, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["kv_len_zero", "on_a_split_boundary", "all_but_the_first_empty",
+                                  "boundary_inside_a_page", "batch_of_32_mixed"])
+def test_split_plain_matches_paged_decode_ref(case):
+    rng = np.random.default_rng(3)
+    if case == "kv_len_zero":        # every split empty in row 0
+        args = (2, 2, 5, 32, 16, 9, [0, 136])
+    elif case == "on_a_split_boundary":   # 5 splits of 32: kv_len 64 ends split 1 exactly
+        args = (2, 8, 5, 32, 16, 9, [64, 96])
+    elif case == "all_but_the_first_empty":
+        args = (2, 8, 5, 32, 16, 9, [7, 32])
+    elif case == "boundary_inside_a_page":  # pages of 64, splits of 32
+        args = (2, 2, 4, 32, 64, 2, [100, 31])
+    else:
+        args = (32, 8, 5, 16, 16, 32, [0] + rng.integers(1, 513, 31).tolist())
+    B, KVH, G, D, page, NB, lens = args
+    n, length = split_plan(B, KVH, NB * page, H100_SMS)
+    assert n > 1
+    q, kp, vp, tables, kv_len = _split_case(len(lens) + D, B, KVH, G, D, page, NB, lens)
+    got = paged_decode_split_plain(q, kp, vp, tables, kv_len, H100_SMS)
+    want = paged_decode_ref(q, kp, vp, tables, kv_len)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=F32_TOL, atol=F32_TOL)
+    for i, n_tok in enumerate(lens):
+        if n_tok == 0:
+            assert not got[i].any()  # kv_len = 0 gives zeros
+    if case == "boundary_inside_a_page":
+        assert length % page and lens[0] > length  # a split ends inside a page the row reads

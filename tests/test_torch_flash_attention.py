@@ -10,7 +10,8 @@ from parity_harness import BF16_TOL, F32_TOL, jax_from, np32, torch_from
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import flash_tiles_plain
 
 
 def _inputs(seed, B, Sq, Skv, H, KVH, D):
@@ -88,3 +89,53 @@ def test_flash_wrapper_checks_its_inputs():
         flash_attention(q, k, k, q_offset=-1)
     with pytest.raises(ValueError):  # neither the card nor the CPU: no plain fallback
         flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+# The bf16 kernel's arithmetic (flash_tiles_plain: 64-key tiles, P split
+# into bf16 hi + lo for the tensor-core P·V) against the plain version, at
+# the limit the card holds the kernel to: |err| <= 1e-4 + 2^-6 |ref|.
+CHIP_ATOL, CHIP_RTOL = 1e-4, 2.0**-6
+
+
+def _share_of_chip_limit(out, ref):
+    d, r = np.abs(np32(out) - np32(ref)), np.abs(np32(ref))
+    return float((d / (CHIP_ATOL + CHIP_RTOL * r)).max())
+
+
+def _bf16_inputs(seed, B, S, H, KVH, D, Dv):
+    rng = np.random.default_rng(seed)
+    return (torch_from(rng.standard_normal((B, S, H, D)), torch.bfloat16),
+            torch_from(rng.standard_normal((B, S, KVH, D)), torch.bfloat16),
+            torch_from(rng.standard_normal((B, S, KVH, Dv)), torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,Dv", [
+    (1, 128, 40, 8, 128, 128),   # the serve path: qwen3-14b's 128-token prefill
+    (1, 128, 40, 40, 96, 64),    # minicpm3-4b's MLA prefill
+])
+def test_flash_tiles_plain_within_the_chip_limit(B, S, H, KVH, D, Dv):
+    q, k, v = _bf16_inputs(S + D, B, S, H, KVH, D, Dv)
+    share = _share_of_chip_limit(flash_tiles_plain(q, k, v), flash_attention_plain(q, k, v, True, 0))
+    assert share <= 0.75, share  # measured 0.48: room for another summation order, none for a bf16 P
+
+
+def test_p_rounded_to_bf16_alone_breaks_the_chip_limit():
+    """Why the kernel splits P: the same tile loop with P rounded to bf16
+    (a tensor-core flash kernel's usual P·V) is several times over the limit
+    where outputs cancel to near zero."""
+    q, k, v = _bf16_inputs(128 + 128, 1, 128, 40, 8, 128, 128)
+    share = _share_of_chip_limit(flash_tiles_plain(q, k, v, split_p=False), flash_attention_plain(q, k, v, True, 0))
+    assert share > 4.0, share
+
+
+@pytest.mark.parametrize("causal,off", [(True, 0), (True, 21), (False, 0)])
+def test_flash_tiles_plain_matches_reference_kernel_bf16(causal, off):
+    """Against the reference's Pallas kernel in interpret mode (f32 P) on the
+    same bf16 inputs, at the chip limit; 2 key tiles of 64 and a ragged one."""
+    rng = np.random.default_rng(17 + off)
+    Sq, Skv = (43, 64 + off) if causal else (32, 128)
+    qn, kn, vn = (rng.standard_normal(s) for s in [(2, Sq, 8, 32), (2, Skv, 2, 32), (2, Skv, 2, 32)])
+    got = flash_tiles_plain(*(torch_from(a, torch.bfloat16) for a in (qn, kn, vn)), causal=causal, q_offset=off)
+    want = jax_flash(*(jax_from(a, jnp.bfloat16) for a in (qn, kn, vn)), causal=causal, q_offset=off,
+                     block_q=16, block_k=32 if causal else 64, interpret=True)
+    assert _share_of_chip_limit(got, want) <= 1.0
