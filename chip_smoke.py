@@ -6,9 +6,13 @@
 Phases, in order, one line each:
   1. device        card name and power limit (nvidia-smi), torch and CUDA versions
   2. build         compile every kernel from the sources in the checkout (nvcc)
-     design        which design each attention kernel runs, as its library
-                   reports it (wgmma, mma.sync or FMA); paged decode's split
-                   count (n_splits x split_len) at three shapes
+     design        which design each kernel runs, as its library reports
+                   it: the attention kernels' (wgmma, mma.sync or FMA) and
+                   paged decode's split count (n_splits x split_len) at three
+                   shapes; the scans' product units (mma.sync and its bf16
+                   pieces, or FMA register tiles), SSD's state-pass steps,
+                   WKV's chunks per state group and each scan kernel's
+                   blocks, at the path and S 4096
   3. flash         flash-attention kernel vs its plain version on the card, bf16
                    and f32, at the serve path's shape, zamba2's (H 32, KVH 32,
                    D 64), olmoe's (H 16, KVH 16, D 128) and minicpm3's MLA
@@ -35,7 +39,8 @@ Phases, in order, one line each:
                    the model's decay, so the log-decay clamp acts), a ragged S
                    with carried state, S 4096, the (B,H,S,N) op at chunk 32,
                    and against the sequential oracle where the clamp is idle;
-                   device times of kernel and plain version, and the bound
+                   device times of kernel and plain version, the bound and the
+                   time as a multiple of it
   8. ssd           the same for the Mamba-2 SSD kernel: zamba2's shape at the
                    model's chunk of 256, a ragged S, S 4096, the op at chunk 64
   9. rwkv6         full-width rwkv6-1.6b from seed 0: a 128-token prompt
@@ -193,7 +198,7 @@ def phase_device():
 def phase_build():
     import torch
 
-    from repro_torch.kernels import _build, decode_attention, flash_attention
+    from repro_torch.kernels import _build, decode_attention, flash_attention, mamba2, rwkv6
 
     t0 = time.perf_counter()
     per = _build.build_all()
@@ -207,6 +212,11 @@ def phase_build():
          paged_decode_bf16=decode_attention.design(torch.bfloat16),
          paged_decode_f32=decode_attention.design(torch.float32),
          paged_decode_splits=f"sms{sms}," + ",".join(f"{k}={v}" for k, v in plans.items()))
+    bf16, f32 = torch.bfloat16, torch.float32
+    line("design", wkv_bf16=rwkv6.design(bf16, 1, 32, 128, 64), wkv_f32=rwkv6.design(f32, 1, 32, 128, 64),
+         wkv_bf16_S4096=rwkv6.design(bf16, 1, 32, 4096, 64))
+    line("design", ssd_bf16=mamba2.design(bf16, 1, 128, 64, 64, 64), ssd_f32=mamba2.design(f32, 1, 128, 64, 64, 64),
+         ssd_bf16_S4096=mamba2.design(bf16, 1, 4096, 64, 64, 64))
 
 
 def _flash_bound(B, Sq, Skv, H, KVH, D, q_offset, causal=True, Dv=None):
@@ -733,7 +743,8 @@ def phase_wkv():
     rec["plain_ms"] = time_ms(lambda: wkv_chunked_plain(r, k, v, w, u, s0, C), 10)
     rec["bound_ms"], rec["bound_by"] = _wkv_bound(B, S, H, N, C, 2)
     line("wkv", case="path timing", kernel_ms=f"{rec['ms']:.5f}", plain_ms=f"{rec['plain_ms']:.5f}",
-         library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"])
+         library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+         of_bound=f"{rec['ms'] / rec['bound_ms']:.1f}x")
 
     # (b) ragged S with a carried state, f32 r/k/v, N 32
     B2, S2, H2, N2 = 2, 77, 4, 32
@@ -756,7 +767,8 @@ def phase_wkv():
     large["library_ms"] = None
     rec["large"] = large
     line("wkv", case="long timing", kernel_ms=f"{large['ms']:.4f}", plain_ms=f"{large['plain_ms']:.4f}",
-         library_ms="null", bound_ms=f"{large['bound_ms']:.4f}", bound_by=large["bound_by"])
+         library_ms="null", bound_ms=f"{large['bound_ms']:.4f}", bound_by=large["bound_by"],
+         of_bound=f"{large['ms'] / large['bound_ms']:.1f}x")
     del rL, kL, vL, wL
 
     # (d) the reference op's (B,H,S,N) layout at chunk 32, read through strides
@@ -801,7 +813,8 @@ def phase_ssd():
     rec["plain_ms"] = time_ms(lambda: ssd_chunked_plain(*ins, C), 5)
     rec["bound_ms"], rec["bound_by"] = _ssd_bound(B, S, H, P, N, C, 2)
     line("ssd", case="path timing", kernel_ms=f"{rec['ms']:.5f}", plain_ms=f"{rec['plain_ms']:.5f}",
-         library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"])
+         library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+         of_bound=f"{rec['ms'] / rec['bound_ms']:.1f}x")
     _scan_case("ssd", {}, ssd_chunked(*ins, chunk=C), ssd_ref(*ins), SSD_TOL,
                case="path vs sequential oracle")
 
@@ -823,7 +836,8 @@ def phase_ssd():
     large["library_ms"] = None
     rec["large"] = large
     line("ssd", case="long timing", kernel_ms=f"{large['ms']:.4f}", plain_ms=f"{large['plain_ms']:.4f}",
-         library_ms="null", bound_ms=f"{large['bound_ms']:.4f}", bound_by=large["bound_by"])
+         library_ms="null", bound_ms=f"{large['bound_ms']:.4f}", bound_by=large["bound_by"],
+         of_bound=f"{large['ms'] / large['bound_ms']:.1f}x")
     del lg
 
     # the reference op at chunk 64 (shrunk to S when S divides it)

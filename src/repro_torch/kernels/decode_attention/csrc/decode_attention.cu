@@ -52,6 +52,7 @@
 // splits with l_s > 0, divided by max(l, 1e-30); no such split gives zeros.
 
 #include "kernel_common.cuh"
+#include "mma_split.cuh"
 
 #include <type_traits>
 
@@ -315,13 +316,7 @@ template <int D> struct Layout {
     static_assert((size_t)WARPS * 16 * D * sizeof(float) <= SMEM, "the join buffer reuses the stages");
 };
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mma_split::mma16816;
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
     const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -1,1 +1,1 @@
-from .ops import ssd, ssd_chunked, ssd_chunked_plain, ssd_ref  # noqa: F401
+from .ops import design, ssd, ssd_chunked, ssd_chunked_plain, ssd_ref  # noqa: F401

@@ -3,8 +3,11 @@
 ``ssd`` keeps the reference op's contract (``kernels/mamba2/ops.py``):
 chunk 64 by default, shrunk to S when S divides it.  ``ssd_chunked`` is the
 model's scan (``models/ssm.py::mamba2_ssd_chunked``) at its chunk of 256;
-the kernel tiles a chunk in 64-step blocks, so no 256 x 256 matrix is ever
-held.  Both take the model's layout, x (B,S,H,P), B/C (B,S,N), a/dt
+the kernel forms every chunk's local state in parallel, passes the states
+from chunk to chunk in one elementwise pass, then forms the outputs in
+64-row tiles, so no 256 x 256 matrix is ever held.  Its f32 workspace
+(each chunk's state and cumulative log-decay) comes from PyTorch's
+allocator.  Both take the model's layout, x (B,S,H,P), B/C (B,S,N), a/dt
 (B,S,H), through strides: the model's views into its conv output are read
 in place, and the kernel masks the ragged last chunk itself (steps past S
 read as a = 1, dt = 0, the reference's padding).
@@ -87,23 +90,33 @@ def _launch(x, Bm, Cm, a, dt, state, chunk: int):
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     s_out = torch.empty_like(state)
     lib = _build.bind("mamba2", _SIGNATURES)
+    ws = torch.empty(lib.mamba2_ssd_workspace_floats(B, S, H, P, N, chunk), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_int64 * 16)(*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2],
                                     *a.stride(), *dt.stride(), *y.stride()[:3])
     _build.call(lib, "mamba2", "mamba2_ssd_fwd", x.device,
                 DTYPE_CODES[x.dtype], x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
-                dt.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                dt.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(), ws.data_ptr(),
                 B, S, H, P, N, chunk, strides)
     launches += 1
     return y, s_out
 
 
+def design(dtype: torch.dtype, B: int, S: int, H: int, P: int, N: int, chunk: int = 256) -> str:
+    """What the library runs for ``dtype`` at this shape, as it reports it:
+    the product instruction, the state pass's steps, the blocks per kernel."""
+    lib = _build.bind("mamba2", _SIGNATURES)
+    return lib.mamba2_ssd_plan(DTYPE_CODES[dtype], B, S, H, P, N, chunk).decode()
+
+
 _SIGNATURES = {
+    "mamba2_ssd_workspace_floats": (ctypes.c_size_t, [ctypes.c_int] * 6),
+    "mamba2_ssd_plan": (ctypes.c_char_p, [ctypes.c_int] * 7),
     "mamba2_ssd_fwd": (ctypes.c_int, [
-        ctypes.c_int, *([ctypes.c_void_p] * 8),
+        ctypes.c_int, *([ctypes.c_void_p] * 9),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
     ]),
 }
 
 
-__all__ = ["ssd", "ssd_chunked", "ssd_ref", "ssd_chunked_plain"]
+__all__ = ["design", "ssd", "ssd_chunked", "ssd_ref", "ssd_chunked_plain"]

@@ -8,8 +8,10 @@ chunk sets the log-decay clamp and with it the model's output.
 
 Both hand the kernel strides, so neither layout is transposed or copied,
 and the kernel masks the ragged last chunk itself (steps past S read as
-r = k = v = 0, w = 1, the reference's padding).  A CUDA tensor launches
-``csrc/rwkv6.cu``; a CPU tensor takes the plain version in ``ref.py``; any
+r = k = v = 0, w = 1, the reference's padding).  The kernel passes states
+between groups of chunks; its f32 workspace (per-chunk records, the
+groups' states and decays) comes from PyTorch's allocator.  A CUDA tensor
+launches ``csrc/rwkv6.cu``; a CPU tensor takes the plain version in ``ref.py``; any
 other device raises.  There is no fallback from the kernel to the plain
 version.
 """
@@ -87,22 +89,32 @@ def _launch(r, k, v, w, u, state, chunk: int):
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(state)
     lib = _build.bind("rwkv6", _SIGNATURES)
+    ws = torch.empty(lib.rwkv6_wkv_workspace_floats(B, H, S, N, chunk), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_int64 * 15)(*(x for t in (r, k, v, w, y) for x in t.stride()[:3]))
     _build.call(lib, "rwkv6", "rwkv6_wkv_fwd", r.device,
                 DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(), ws.data_ptr(),
                 B, H, S, N, chunk, strides)
     launches += 1
     return y, s_out
 
 
+def design(dtype: torch.dtype, B: int, H: int, S: int, N: int, chunk: int = 16) -> str:
+    """What the library runs for ``dtype`` at this shape, as it reports it:
+    the product instruction, the chunks per state group, the blocks per kernel."""
+    lib = _build.bind("rwkv6", _SIGNATURES)
+    return lib.rwkv6_wkv_plan(DTYPE_CODES[dtype], B, H, S, N, chunk).decode()
+
+
 _SIGNATURES = {
+    "rwkv6_wkv_workspace_floats": (ctypes.c_size_t, [ctypes.c_int] * 5),
+    "rwkv6_wkv_plan": (ctypes.c_char_p, [ctypes.c_int] * 6),
     "rwkv6_wkv_fwd": (ctypes.c_int, [
-        ctypes.c_int, *([ctypes.c_void_p] * 8),
+        ctypes.c_int, *([ctypes.c_void_p] * 9),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
     ]),
 }
 
 
-__all__ = ["wkv", "wkv_model", "wkv_ref", "wkv_chunked_plain"]
+__all__ = ["design", "wkv", "wkv_model", "wkv_ref", "wkv_chunked_plain"]

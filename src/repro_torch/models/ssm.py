@@ -71,7 +71,12 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK, plain_kernels: boo
     """Chunked RWKV6 WKV.  r/k/v (B,S,H,N) (bf16 on the model path), w
     (B,S,H,N) f32; u (H,N) f32; state (B,H,N,N) f32.  Returns (y (B,S,H,N)
     f32, state').  The WKV kernel reads the (B,S,H,N) views in place and pads
-    the last chunk the way the reference does (r = k = v = 0, w = 1)."""
+    the last chunk the way the reference does (r = k = v = 0, w = 1).
+    ``plain_kernels`` may also be a function of the same arguments, which
+    then runs in the scan's place (scripts/bf16_gate_sensitivity.py passes
+    a float64 scan through ``greedy_decode``)."""
+    if callable(plain_kernels):
+        return plain_kernels(r, k, v, w, u, state, chunk)
     if plain_kernels:
         return wkv_chunked_plain(r, k, v, w, u, state, chunk)
     return wkv_model(r, k, v, w, u, state, chunk=chunk)

@@ -25,8 +25,10 @@ from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
 # covers outputs near zero, where the kernels' f32 sums differ in order.
 # f32: summation order.
 TOL = {torch.bfloat16: (1e-4, 2.0**-6), torch.float32: (1e-4, 1e-4)}
-# The scans: the reference kernel tests' own tolerances (tests/test_kernels.py:104,141);
-# kernel and plain version do the same f32 operations, the sums in another order.
+# The scans: the reference kernel tests' own tolerances (tests/test_kernels.py:104,141).
+# WKV sums on the FMA units in the plain version's order; SSD's products run
+# on tensor cores with f32 operands in three bf16 pieces (~2^-24 of each
+# product, mamba2/ref.py::ssd_tiles_plain), the sums in another order.
 WKV_TOL, SSD_TOL = 3e-4, 4e-4
 
 
@@ -187,14 +189,29 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         paged_decode(torch.zeros(1, 4, 256, dtype=torch.bfloat16, device=dev)[:, :, ::2], kp, kp, tables, lens)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,S,H,N,chunk", [(1, 128, 32, 64, 16), (2, 77, 4, 32, 16), (1, 40, 3, 16, 64)])
-def test_wkv_kernel_matches_plain(dev, dtype, B, S, H, N, chunk):
+def _wkv_inputs(g, B, S, H, N, dtype, dev):
     """Model layout, the model's decay (the chunk-16 clamp acts), a carried state."""
-    g = torch.Generator(device=dev).manual_seed(S + N)
     r, k, v = (_randn(g, (B, S, H, N), dtype, dev) for _ in range(3))
     w = torch.exp(-torch.exp(_randn(g, (B, S, H, N), torch.float32, dev)))
     u, s0 = _randn(g, (H, N), torch.float32, dev) * 0.3, _randn(g, (B, H, N, N), torch.float32, dev) * 0.5
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (1, 128, 32, 64, 16), (2, 77, 4, 32, 16), (1, 40, 3, 16, 64),
+    (1, 1, 4, 64, 16),       # one step
+    (3, 1000, 2, 64, 16),    # 63 chunks: 16 state groups, B 3
+    (1, 700, 2, 64, 32),     # chunk 32: 6 groups, the last of 2 chunks and ragged
+    (1, 600, 2, 64, 64),     # chunk 64: 4 groups of up to 3 chunks
+    (1, 300, 2, 8, 16),      # N under a slab's 16 columns
+    (2, 200, 2, 24, 16),     # a full slab and a slab of 8
+    (1, 150, 2, 4, 16),      # rows of 8 bytes: plain loads, not cp.async
+    (1, 95, 2, 40, 7),       # chunk 7: rows padded to 8 in the records; slabs of 16, 16, 8
+])
+def test_wkv_kernel_matches_plain(dev, dtype, B, S, H, N, chunk):
+    g = torch.Generator(device=dev).manual_seed(S + N)
+    r, k, v, w, u, s0 = _wkv_inputs(g, B, S, H, N, dtype, dev)
     reset_launch_counts()
     y, s = wkv_model(r, k, v, w, u, s0, chunk=chunk)
     torch.cuda.synchronize()
@@ -216,16 +233,27 @@ def test_wkv_kernel_reads_the_op_layout(dev):
     torch.testing.assert_close(s, sp, atol=WKV_TOL, rtol=WKV_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [(1, 128, 64, 64, 64, 256), (2, 333, 3, 32, 16, 256),
-                                             (1, 100, 2, 64, 64, 64), (1, 50, 4, 8, 16, 16)])
-def test_ssd_kernel_matches_plain(dev, dtype, B, S, H, P, N, chunk):
-    g = torch.Generator(device=dev).manual_seed(S + P)
+def _ssd_inputs(g, B, S, H, P, N, dtype, dev):
     x = _randn(g, (B, S, H, P), dtype, dev)
     Bm, Cm = _randn(g, (B, S, N), dtype, dev), _randn(g, (B, S, N), dtype, dev)
     dt = torch.nn.functional.softplus(_randn(g, (B, S, H), torch.float32, dev))
     a = torch.exp(-dt * torch.exp(_randn(g, (H,), torch.float32, dev) * 0.3))
     s0 = _randn(g, (B, H, P, N), torch.float32, dev) * 0.5
+    return x, Bm, Cm, a, dt, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 128, 64, 64, 64, 256), (2, 333, 3, 32, 16, 256), (1, 100, 2, 64, 64, 64), (1, 50, 4, 8, 16, 16),
+    (1, 1, 4, 64, 64, 256),     # one step
+    (3, 40, 2, 64, 64, 256),    # S < 64, B 3
+    (1, 1500, 2, 64, 64, 256),  # 6 chunks, the last ragged
+    (2, 700, 3, 16, 8, 64),     # P and N under 16, 11 chunks
+    (1, 600, 2, 5, 3, 100),     # odd P and N; chunks of two row tiles, 64 and 36
+])
+def test_ssd_kernel_matches_plain(dev, dtype, B, S, H, P, N, chunk):
+    g = torch.Generator(device=dev).manual_seed(S + P)
+    x, Bm, Cm, a, dt, s0 = _ssd_inputs(g, B, S, H, P, N, dtype, dev)
     reset_launch_counts()
     y, s = ssd_chunked(x, Bm, Cm, a, dt, s0, chunk=chunk)
     torch.cuda.synchronize()
@@ -247,6 +275,30 @@ def test_ssd_kernel_reads_the_models_views_in_place(dev):
     yp, sp = ssd_chunked_plain(x, Bm, Cm, a, dt, s0, 64)
     torch.testing.assert_close(y, yp, atol=SSD_TOL, rtol=SSD_TOL)
     torch.testing.assert_close(s, sp, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scan", ["wkv", "ssd"])
+def test_scan_kernels_chain_through_the_returned_state(dev, dtype, scan):
+    """Two calls, the second starting from the first's state, against one
+    call over both halves: WKV cut at a chunk boundary inside a state group
+    (the clamp is per chunk), SSD inside a chunk."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if scan == "wkv":
+        r, k, v, w, u, s0 = _wkv_inputs(g, 2, 400, 3, 64, dtype, dev)
+        seq, cut, tol = (r, k, v, w), 160, WKV_TOL
+        def run(seq, s):
+            return wkv_model(*seq, u, s)
+    else:
+        *seq, s0 = _ssd_inputs(g, 2, 700, 3, 64, 64, dtype, dev)
+        cut, tol = 300, SSD_TOL
+        def run(seq, s):
+            return ssd_chunked(*seq, s)
+    y, s = run(seq, s0)
+    y1, s1 = run([t[:, :cut] for t in seq], s0)
+    y2, s2 = run([t[:, cut:] for t in seq], s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=tol, rtol=tol)
+    torch.testing.assert_close(s2, s, atol=tol, rtol=tol)
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(dev):
