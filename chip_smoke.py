@@ -67,7 +67,10 @@ Phases, in order, one line each:
                    counters reset just before and read just after; both
                    kernels held against their plain versions and the host codec
                    (core/codec.py) there, on the reference kernel test's shapes,
-                   a zero channel and a 4096 x 8192 case; device times
+                   a zero channel and a 4096 x 8192 case (there bit for bit);
+                   the plan each kernel launches (one pass or split-T,
+                   slabs, vector width); device times, with torch.mul(q, s,
+                   out=out) beside dequantize (yardstick only)
  14. kernels       one JSON line describing the six kernels
 
 Every phase runs on every call.  Any failed phase raises and the exit code
@@ -1192,27 +1195,43 @@ def _codec_case(name, x, q, s, outs, rec):
 
 
 def _codec_times(rec_q, rec_d, key, x, out_dtype, iters):
-    """Device times of both kernels and their plain versions on ``x``, and
-    their bounds; into rec_q[key] and rec_d[key]."""
-    from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, quantize_ref
+    """Device times of both kernels and their plain versions on ``x``, of
+    ``torch.mul(q, s, out=out)`` beside dequantize (one PyTorch call of the
+    same function, f32 product rounded once to out's dtype; a yardstick the
+    port never calls; none computes quantize's absmax and quantize in one
+    call), and their bounds; into rec_q[key] and rec_d[key].  Prints the
+    plan each kernel launches."""
+    import torch
+
+    from repro_torch.kernels.kv_codec import (dequantize, dequantize_ref, plan_for_dequantize, plan_for_quantize,
+                                              quantize, quantize_ref)
 
     T, C = x.reshape(-1, x.shape[-1]).shape
     q, s = quantize(x)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    if not torch.equal(torch.mul(q, s, out=out), dequantize_ref(q, s, out_dtype)):
+        raise AssertionError("kv_codec: torch.mul(q, s, out=out) is not the function dequantize computes")
     out_bytes = {"torch.float16": 2, "torch.bfloat16": 2, "torch.float32": 4}[str(out_dtype)]
-    for rec, fn, plain, bound in (
-        (rec_q, lambda: quantize(x), lambda: quantize_ref(x), _codec_bound(T, C, x.element_size(), 1)),
+    for rec, fn, plain, library, bound in (
+        (rec_q, lambda: quantize(x), lambda: quantize_ref(x), None, _codec_bound(T, C, x.element_size(), 1)),
         (rec_d, lambda: dequantize(q, s, out_dtype=out_dtype), lambda: dequantize_ref(q, s, out_dtype),
-         _codec_bound(T, C, 1, out_bytes)),
+         lambda: torch.mul(q, s, out=out), _codec_bound(T, C, 1, out_bytes)),
     ):
         entry = rec.setdefault(key, {}) if key else rec
         entry.update(ms=time_ms(fn, iters), plain_ms=time_ms(plain, max(1, iters // 4)),
-                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                     bound_ms=bound[0], bound_by=bound[1],
+                     library_ms=time_ms(library, iters) if library else None)
         entry.setdefault("shape", f"{T}x{C} {str(x.dtype).replace('torch.', '')}")
+    line("kv_codec", plans=key or "serve block",
+         **{f"{name}_{k}": v for name, plan in (("quantize", plan_for_quantize(x)),
+                                                ("dequantize", plan_for_dequantize(q, s, out_dtype)))
+            for k, v in plan._asdict().items()})
     for name, rec in (("quantize", rec_q), ("dequantize", rec_d)):
         e = rec[key] if key else rec
+        lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.5f}"
         line("kv_codec", kernel=name, timing=key or "serve block", shape=e["shape"], kernel_ms=f"{e['ms']:.5f}",
-             plain_ms=f"{e['plain_ms']:.5f}", library_ms="null", bound_ms=f"{e['bound_ms']:.5f}",
-             bound_by=e["bound_by"])
+             plain_ms=f"{e['plain_ms']:.5f}", library_ms=lib, bound_ms=f"{e['bound_ms']:.5f}",
+             bound_by=e["bound_by"], of_bound=f"{e['ms'] / e['bound_ms']:.2f}x")
 
 
 def phase_kv_codec(serve_blocks, slab):
@@ -1224,7 +1243,7 @@ def phase_kv_codec(serve_blocks, slab):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels.kv_codec import dequantize, quantize
+    from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, quantize_ref
 
     blocks = [torch.from_numpy(b).to("cuda") for b in serve_blocks]
     line("kv_codec", serve_blocks=len(blocks), block_shape="x".join(map(str, blocks[0].shape)),
@@ -1270,6 +1289,15 @@ def phase_kv_codec(serve_blocks, slab):
     _codec_times(rec_q, rec_d, None, blocks[0], torch.float16, 200)
     _codec_times(rec_q, rec_d, "slab", slab, torch.bfloat16, 200)
     large = randn(4096, 8192)
+    # split-T cuts the rows into slabs: the max over them is the same max, so bit for bit
+    q, s = quantize(large)
+    qr, sr = quantize_ref(large)
+    same = {"q": torch.equal(q, qr), "scale": torch.equal(s, sr),
+            "dequant": torch.equal(dequantize(q, s, out_dtype=torch.bfloat16), dequantize_ref(q, s, torch.bfloat16))}
+    line("kv_codec", case="large 4096x8192 bf16", **{f"{k}_equal_plain": v for k, v in same.items()})
+    if not all(same.values()):
+        raise AssertionError(f"kv_codec: 4096x8192 differs from the plain version bit for bit: {same}")
+    del q, s, qr, sr
     _codec_times(rec_q, rec_d, "large", large, torch.bfloat16, 20)
     line("kv_codec", summary="all cases", q_max_step=rec_q["q_max_step"], q_differing=rec_q["q_differing"],
          dequant_max_abs_err=f"{rec_q['dequant_max_abs_err']:.3e}")
@@ -1311,8 +1339,8 @@ def kernels_line(recs, counts):
             if extra in rec:
                 entry[extra] = rec[extra]
         if entry["library_ms"] is None:
-            entry["library_note"] = ("no single PyTorch call computes the absmax-scaled int8 codec"
-                                     if name in ("quantize", "dequantize") else
+            entry["library_note"] = ("no single PyTorch call computes the absmax and the quantize together"
+                                     if name == "quantize" else
                                      "no single PyTorch call computes this scan")
         entries.append(entry)
     return {"kernels": entries}

@@ -18,6 +18,7 @@ failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = KERNELS_DIR / "include"
@@ -109,15 +110,33 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def run_on(what: str, device, plain: Callable, kernel: Callable):
+def run_on(what: str, device, plain: Callable, kernel: Callable, *, inputs: Sequence):
     """Every wrapper's device rule: a CPU tensor takes the plain version, a
     CUDA tensor launches the kernel (which raises where it cannot launch),
-    any other device raises.  There is no fallback from kernel to plain."""
+    any other device raises.  There is no fallback from kernel to plain.
+
+    No kernel has a backward, and a kernel fills a fresh tensor outside
+    autograd, so on CUDA an op whose tensor ``inputs`` require grad while
+    grad mode is on raises rather than return outputs cut off from the
+    graph.  The plain versions stay differentiable."""
     if device.type == "cpu":
         return plain()
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda (kernel) or cpu (plain), not {device}")
+    import torch
+
+    if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in inputs):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires grad; run it "
+                           f"under torch.no_grad() or torch.inference_mode(), or differentiate through the "
+                           f"plain path (plain_kernels=True)")
     return kernel()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 _bound: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,6 @@ split from shapes alone, so no call reads ``kv_len`` on the host.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -53,11 +52,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError("paged_decode expects q (B,H,D) and k/v pages (P,page,KVH,D)")
@@ -86,7 +80,8 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len):
     are masked; a row with kv_len = 0 gives zeros."""
     _check(q, k_pages, v_pages, block_tables, kv_len)
     return _build.run_on("paged_decode", q.device, lambda: paged_decode_ref(q, k_pages, v_pages, block_tables, kv_len),
-                         lambda: _launch(q, k_pages, v_pages, block_tables, kv_len))
+                         lambda: _launch(q, k_pages, v_pages, block_tables, kv_len),
+                         inputs=(q, k_pages, v_pages))
 
 
 def _launch(q, k_pages, v_pages, block_tables, kv_len):
@@ -109,7 +104,7 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
     o = torch.empty_like(q)
     if B == 0:
         return o
-    n_splits, split_len = split_plan(B, KVH, NB * page, _sm_count(q.device))
+    n_splits, split_len = split_plan(B, KVH, NB * page, _build.sm_count(q.device))
     part_ml = torch.empty((B, KVH, n_splits, G, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((B, KVH, n_splits, G, D), dtype=torch.float32, device=q.device)
     _build.call(lib, "paged_decode", "paged_decode_fwd", q.device,

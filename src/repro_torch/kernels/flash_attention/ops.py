@@ -59,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if not causal and Skv % bk:
         raise ValueError("non-causal flash requires Skv % block_k == 0 (pad keys are unmaskable)")
     return _build.run_on("flash_attention", q.device, lambda: flash_attention_plain(q, k, v, causal, q_offset),
-                         lambda: _launch(q, k, v, causal, q_offset))
+                         lambda: _launch(q, k, v, causal, q_offset), inputs=(q, k, v))
 
 
 def _launch(q, k, v, causal: bool, q_offset: int):

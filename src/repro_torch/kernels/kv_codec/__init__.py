@@ -1,1 +1,12 @@
-from .ops import dequantize, dequantize_ref, quantize, quantize_ref  # noqa: F401
+from .ops import (  # noqa: F401
+    dequantize,
+    dequantize_plan,
+    dequantize_ref,
+    plan_for_dequantize,
+    plan_for_quantize,
+    quantize,
+    quantize_plan,
+    quantize_ref,
+    quantize_slabs_plain,
+    vector_aligned,
+)

@@ -71,7 +71,7 @@ def _check(x, Bm, Cm, a, dt, state, chunk: int) -> None:
 def _run(x, Bm, Cm, a, dt, state, chunk: int):
     _check(x, Bm, Cm, a, dt, state, chunk)
     return _build.run_on("ssd", x.device, lambda: ssd_chunked_plain(x, Bm, Cm, a, dt, state, chunk),
-                         lambda: _launch(x, Bm, Cm, a, dt, state, chunk))
+                         lambda: _launch(x, Bm, Cm, a, dt, state, chunk), inputs=(x, Bm, Cm, a, dt, state))
 
 
 def _launch(x, Bm, Cm, a, dt, state, chunk: int):

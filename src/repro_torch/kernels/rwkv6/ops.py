@@ -72,7 +72,7 @@ def _check(r, k, v, w, u, state, chunk: int) -> None:
 def _run(r, k, v, w, u, state, chunk: int):
     _check(r, k, v, w, u, state, chunk)
     return _build.run_on("wkv", r.device, lambda: wkv_chunked_plain(r, k, v, w, u, state, chunk),
-                         lambda: _launch(r, k, v, w, u, state, chunk))
+                         lambda: _launch(r, k, v, w, u, state, chunk), inputs=(r, k, v, w, u, state))
 
 
 def _launch(r, k, v, w, u, state, chunk: int):

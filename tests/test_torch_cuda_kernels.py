@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, quantize, quantize_ref
+from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, plan_for_quantize, quantize, quantize_ref
 from repro_torch.kernels.mamba2 import ssd, ssd_chunked, ssd_chunked_plain
 from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
 
@@ -176,6 +176,100 @@ def test_kv_codec_reads_a_row_strided_view(dev):
     q, s = quantize(x)
     qr, sr = quantize_ref(x)
     assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+@pytest.mark.parametrize("dtype,shape,path", [
+    (torch.bfloat16, (4096, 8192), "split_t"),
+    (torch.float16, (4097, 1000), "split_t"),  # 26 slabs, the last of 97 rows
+    (torch.bfloat16, (1, 81920), "one_pass"),
+    (torch.float32, (1, 81920), "one_pass"),
+    (torch.float32, (64, 300), "one_pass"),    # the last one-pass T
+    (torch.float32, (65, 300), "split_t"),     # the first split-T T
+])
+def test_kv_codec_kernels_equal_plain_across_the_plans(dev, dtype, shape, path):
+    """Bit for bit on both sides of the one-pass / split-T boundary: a max
+    does not depend on its order, and both do the same IEEE f32 division."""
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    x = _randn(g, shape, torch.float32, dev).mul_(4).to(dtype)
+    x[:, 5] = 0
+    assert plan_for_quantize(x).path == path
+    q, s = quantize(x)
+    qr, sr = quantize_ref(x)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    for out in (torch.bfloat16, torch.float32, torch.float16):
+        assert torch.equal(dequantize(q, s, out_dtype=out), dequantize_ref(q, s, out))
+
+
+@pytest.mark.parametrize("cut", ["start", "channels"])
+def test_kv_codec_unaligned_and_ragged_inputs(dev, cut):
+    """x[:, 1:] in bf16 starts 2 bytes off 16: one element a lane.  C = 300
+    f32 is 75 vectors of 4: a ragged last tile.  Codes 1 byte off 16: the
+    dequantize instance of one element a lane."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    if cut == "start":
+        x = _randn(g, (48, 265), torch.bfloat16, dev)[:, 1:]
+        assert x.data_ptr() % 16 == 2 and plan_for_quantize(x).vec == 1
+    else:
+        x = _randn(g, (100, 300), torch.float32, dev)
+        assert plan_for_quantize(x).vec == 4
+    q, s = quantize(x)
+    qr, sr = quantize_ref(x)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(dequantize(q, s, out_dtype=torch.float32), dequantize_ref(q, s, torch.float32))
+    q_off = torch.zeros(q.numel() + 1, dtype=torch.int8, device=dev)[1:].view(q.shape).copy_(q)  # 1 byte off
+    assert torch.equal(dequantize(q_off, s, out_dtype=torch.bfloat16), dequantize_ref(q, s, torch.bfloat16))
+
+
+def _grad_cases(dev):
+    """Each kernel op on small card inputs: (name, call(grad)) where ``grad``
+    marks the input that requires grad."""
+    def rnd(*shape):
+        return torch.randn(shape, device=dev)
+
+    def flash(g):
+        return flash_attention(rnd(1, 8, 2, 64).requires_grad_(g), rnd(1, 8, 2, 64), rnd(1, 8, 2, 64))
+
+    def decode(g):
+        tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+        lens = torch.ones(1, dtype=torch.int32, device=dev)
+        return paged_decode(rnd(1, 2, 64).requires_grad_(g), rnd(3, 16, 2, 64), rnd(3, 16, 2, 64), tables, lens)
+
+    def scan_wkv(g):
+        r = rnd(1, 16, 2, 16)
+        return wkv_model(r.requires_grad_(g), r, r, torch.full_like(r, 0.9), torch.zeros(2, 16, device=dev),
+                         torch.zeros(1, 2, 16, 16, device=dev))
+
+    def scan_ssd(g):
+        x, bc, ad = rnd(1, 16, 2, 16), rnd(1, 16, 8), torch.rand(1, 16, 2, device=dev)
+        return ssd_chunked(x.requires_grad_(g), bc, bc, ad, ad, torch.zeros(1, 2, 16, 8, device=dev))
+
+    def quant(g):
+        return quantize(rnd(16, 256).requires_grad_(g))
+
+    def dequant(g):
+        return dequantize(torch.ones(16, 256, dtype=torch.int8, device=dev), rnd(256).requires_grad_(g))
+
+    return {"flash": flash, "paged_decode": decode, "wkv": scan_wkv, "ssd": scan_ssd, "quantize": quant,
+            "dequantize": dequant}
+
+
+@pytest.mark.parametrize("name", ["flash", "paged_decode", "wkv", "ssd", "quantize", "dequantize"])
+def test_kernel_ops_raise_rather_than_cut_autograd(dev, name):
+    """No kernel has a backward: under grad mode an input that requires
+    grad raises and launches nothing; under inference_mode or no_grad the
+    kernel runs."""
+    call = _grad_cases(dev)[name]
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward.*plain_kernels=True"):
+        call(True)
+    assert launch_counts()[name] == 0
+    with torch.inference_mode():
+        call(True)
+    with torch.no_grad():
+        call(True)
+    call(False)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 3
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
