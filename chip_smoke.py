@@ -18,13 +18,17 @@ Phases, in order, one line each:
                    D 64), olmoe's (H 16, KVH 16, D 128) and minicpm3's MLA
                    prefill (H 40, q/k head dim 96, v head dim 64), ragged-offset
                    cases over strided cache slices, and 4096-token prefills at
-                   qwen3-14b's, minicpm3's and zamba2's head shapes; device
+                   qwen3-14b's, minicpm3's and zamba2's head shapes, and
+                   whisper-small's non-causal shapes through the full entry
+                   point (encoder 1500 x 1500, prefill cross-attention
+                   128 x 1500, H 12, D 64: a key count no block divides); device
                    times (CUDA-graph replay) of kernel, plain version and SDPA
                    (yardstick only: the port never calls it)
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
                    shape, zamba2's and olmoe's (kv_len 129..136, bf16 and f32), a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
-                   one kv_len = 0 row, one 4096-token sequence; the paged-pool
+                   one kv_len = 0 row, one 4096-token sequence, whisper-small's
+                   decode cross-attention (kv_len 1500 over 94 pages); the paged-pool
                    staging check; times as above
   5. serve         full-width qwen3-14b through launch.serve_e2e.main: staged
                    workload -> ServingEngine -> CacheHierarchy -> 4-shard
@@ -59,7 +63,12 @@ Phases, in order, one line each:
  12. minicpm3      the same for full-width minicpm3-4b, MLA (flash 62 per
                    prefill at q/k head dim 96 and v head dim 64; decode is the
                    absorbed plain-torch path, no launch)
- 13. kv_codec      the int8 codec's entry points, quantize and dequantize, over
+ 13. whisper       the same for full-width whisper-small, encoder-decoder, on
+                   1500 stub frames drawn from the seed (flash 36 per
+                   prefill: 12 encoder, 12 decoder self, 12 cross; paged_decode
+                   24 per token: 12 self, 12 over the cross cache), with the
+                   encoder's time beside the prefill's
+ 14. kv_codec      the int8 codec's entry points, quantize and dequantize, over
                    the float16 KV blocks of one full-width qwen3-14b prefill
                    (8 of 16 x 81920, as the serve hook hands them to the store)
                    and a 16 x 17856 slab of full-width minicpm3-4b's latent
@@ -71,7 +80,7 @@ Phases, in order, one line each:
                    the plan each kernel launches (one pass or split-T,
                    slabs, vector width); device times, with torch.mul(q, s,
                    out=out) beside dequantize (yardstick only)
- 14. kernels       one JSON line describing the six kernels
+ 15. kernels       one JSON line describing the six kernels
 
 Every phase runs on every call.  Any failed phase raises and the exit code
 is nonzero.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -234,7 +243,7 @@ def phase_flash():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -361,6 +370,31 @@ def phase_flash():
              library_ms=f"{rec[label]['library_ms']:.4f}", bound_ms=f"{boundl[0]:.4f}", bound_by=boundl[1])
         del ql, kl, vl, qlt, klt, vlt
         torch.cuda.empty_cache()
+
+    # whisper-small through the full entry point: every key visible, 1500
+    # encoder frames (no multiple of the 64-key tile: the last holds 28);
+    # the encoder's self-attention and prefill cross-attention
+    Hw, Tw, Dw = 12, 1500, 64
+    for label, Sqw in (("whisper_encoder", Tw), ("whisper_cross", PROMPT)):
+        qw, kw, vw = rand(1, Sqw, Hw, Dw), rand(1, Tw, Hw, Dw), rand(1, Tw, Hw, Dw)
+        errw, sharew = assert_bf16(f"flash {label}", flash_attention_full(qw, kw, vw),
+                                   flash_attention_plain(qw, kw, vw, False, 0))
+        errw32, _ = assert_close(f"flash {label} f32", flash_attention_full(qw.float(), kw.float(), vw.float()),
+                                 flash_attention_plain(qw.float(), kw.float(), vw.float(), False, 0), F32_TOL)
+        rec["max_abs_err"] = max(rec["max_abs_err"], errw)
+        qwt, kwt, vwt = qw.transpose(1, 2), kw.transpose(1, 2), vw.transpose(1, 2)
+        boundw = _flash_bound(1, Sqw, Tw, Hw, Hw, Dw, 0, causal=False)
+        rec[label] = {"shape": f"B1 Sq{Sqw} Skv{Tw} H{Hw} KVH{Hw} D{Dw} non-causal bf16", "max_abs_err": errw,
+                      "ms": time_ms(lambda: flash_attention_full(qw, kw, vw), 50),
+                      "plain_ms": time_ms(lambda: flash_attention_plain(qw, kw, vw, False, 0), 5, reps=3),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qwt, kwt, vwt), 50),
+                      "bound_ms": boundw[0], "bound_by": boundw[1]}
+        line("flash", case=rec[label]["shape"], max_abs_err=f"{errw:.3e}", tol=BF16_LIMIT, of_limit=f"{sharew:.3f}",
+             f32_err=f"{errw32:.3e}", f32_tol=F32_TOL, kernel_ms=f"{rec[label]['ms']:.5f}",
+             plain_ms=f"{rec[label]['plain_ms']:.5f}", library_ms=f"{rec[label]['library_ms']:.5f}",
+             bound_ms=f"{boundw[0]:.5f}", bound_by=boundw[1])
+        del qw, kw, vw, qwt, kwt, vwt
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -452,6 +486,35 @@ def phase_paged_decode():
              max_abs_err=f"{errz:.3e}", tol=BF16_LIMIT, of_limit=f"{sharez:.3f}", f32_err=f"{errz32:.3e}",
              f32_tol=F32_TOL, kernel_ms=f"{rec[label]['ms']:.5f}", plain_ms=f"{rec[label]['plain_ms']:.5f}",
              library_ms=f"{rec[label]['library_ms']:.5f}", bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
+
+    # whisper-small's decode cross-attention: the cross cache of 1500
+    # encoder frames at cache_len(1500) = 1504 slots, 94 pages, kv_len 1500;
+    # the 4 pad slots hold values here, so one read unmasked would show
+    Hw, Dw, NBw, Tw = 12, 64, 94, 1500
+    kpw, vpw = rand(NBw, page, Hw, Dw), rand(NBw, page, Hw, Dw)
+    tabw = torch.arange(NBw, dtype=torch.int32, device=dev).view(1, NBw)
+    lensw = torch.tensor([Tw], dtype=torch.int32, device=dev)
+    qw = rand(1, Hw, Dw)
+    errw, sharew = assert_bf16("paged_decode whisper_cross", paged_decode(qw, kpw, vpw, tabw, lensw),
+                               paged_decode_ref(qw, kpw, vpw, tabw, lensw))
+    errw32, _ = assert_close("paged_decode whisper_cross f32",
+                             paged_decode(qw.float(), kpw.float(), vpw.float(), tabw, lensw),
+                             paged_decode_ref(qw.float(), kpw.float(), vpw.float(), tabw, lensw), F32_TOL)
+    rec["max_abs_err"] = max(rec["max_abs_err"], errw)
+    sq, sk, sv, _ = _dense_sdpa_inputs(qw, kpw, vpw, tabw, lensw)
+    sk, sv = sk[:, :, :Tw].contiguous(), sv[:, :, :Tw].contiguous()
+    boundw = _decode_bound(1, Hw, Hw, Dw, Tw, NBw)
+    rec["whisper_cross"] = {"shape": f"B1 H{Hw} KVH{Hw} D{Dw} page16 kv_len{Tw} over {NBw} pages bf16",
+                            "max_abs_err": errw,
+                            "ms": time_ms(lambda: paged_decode(qw, kpw, vpw, tabw, lensw), 200),
+                            "plain_ms": time_ms(lambda: paged_decode_ref(qw, kpw, vpw, tabw, lensw), 50),
+                            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200),
+                            "bound_ms": boundw[0], "bound_by": boundw[1]}
+    line("paged_decode", case=rec["whisper_cross"]["shape"], max_abs_err=f"{errw:.3e}", tol=BF16_LIMIT,
+         of_limit=f"{sharew:.3f}", f32_err=f"{errw32:.3e}", f32_tol=F32_TOL,
+         kernel_ms=f"{rec['whisper_cross']['ms']:.5f}", plain_ms=f"{rec['whisper_cross']['plain_ms']:.5f}",
+         library_ms=f"{rec['whisper_cross']['library_ms']:.5f}", bound_ms=f"{boundw[0]:.5f}", bound_by=boundw[1])
+    del kpw, vpw, sk, sv
 
     # batch: 32 sequences, mixed kv_len up to 4096, shuffled tables, one kv_len = 0 row
     B, NBb = 32, 256
@@ -600,27 +663,35 @@ def _host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def path_times(cfg, params, prompt, fed):
+def path_times(cfg, params, prompt, fed, frames=None):
     """Warm prefill ms of ``prompt`` and decode ms per token of ``fed``
     (teacher-forced), on the kernel path and on the plain path (host clock,
-    synchronised), as printable strings."""
+    synchronised), as printable strings.  An encdec model takes ``frames``;
+    its encoder's time, a part of the prefill's, is printed beside it."""
     import torch
 
-    from repro_torch.launch.serve_e2e import greedy_decode
-    from repro_torch.models import api
+    from repro_torch.launch.serve_e2e import greedy_decode, prefill_inputs
+    from repro_torch.models import api, encdec
 
     toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
+    inputs = prefill_inputs(cfg, toks, frames)
     timing = {}
     for label, plain in (("kernel", False), ("plain", True)):
         pfn = api.prefill_fn(cfg, plain)
 
         def prefill():
             with torch.inference_mode():
-                pfn(params, {"tokens": toks}, api.init_cache(cfg, 1, len(prompt), "cuda"), 0)
+                pfn(params, inputs, api.init_cache(cfg, 1, len(prompt), "cuda"), 0)
 
         prefill()
         timing[f"{label}_prefill_ms"] = _host_ms(prefill)
-        total = _host_ms(lambda: greedy_decode(cfg, params, prompt, len(fed), "cuda", plain, fed))
+        if frames is not None:
+            def encode():
+                with torch.inference_mode():
+                    encdec.encode(params, cfg, frames, plain)
+
+            timing[f"{label}_encode_ms"] = _host_ms(encode)
+        total = _host_ms(lambda: greedy_decode(cfg, params, prompt, len(fed), "cuda", plain, fed, frames))
         timing[f"{label}_decode_ms_per_token"] = (total - timing[f"{label}_prefill_ms"]) / len(fed)
     return {k: f"{v:.3f}" for k, v in timing.items()}
 
@@ -651,20 +722,24 @@ def phase_decode_check(cfg, params, res):
     profile_prefill(cfg, params, toks)
 
 
-def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "profile_prefill.txt"):
-    """torch.profiler over one warm kernel-path prefill: device busy time
-    (sum of kernel times, one stream) against the synchronised wall time,
-    and the kernels that take it.  The table goes to chiprun_out/."""
+def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "profile_prefill.txt", frames=None):
+    """torch.profiler over one warm kernel-path prefill (an encdec model's
+    on ``frames``): device busy time (sum of kernel times, one stream)
+    against the synchronised wall time, and the kernels that take it.  The
+    table is written to the file ``table`` in the output directory beside
+    this script."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.serve_e2e import prefill_inputs
     from repro_torch.models import api
 
     pfn = api.prefill_fn(cfg)
+    inputs = prefill_inputs(cfg, toks, frames)
 
     def prefill():
         with torch.inference_mode():
-            pfn(params, {"tokens": toks}, api.init_cache(cfg, 1, toks.shape[1], "cuda"), 0)
+            pfn(params, inputs, api.init_cache(cfg, 1, toks.shape[1], "cuda"), 0)
 
     prefill()
     torch.cuda.synchronize()
@@ -852,7 +927,8 @@ def phase_ssd():
 
 
 # ------------------------------------------------------- full-width models
-MODELS = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b", "olmoe": "olmoe-1b-7b", "minicpm3": "minicpm3-4b"}
+MODELS = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b", "olmoe": "olmoe-1b-7b", "minicpm3": "minicpm3-4b",
+          "whisper": "whisper-small"}
 PROMPT, DECODE, HALF = 128, 8, 64
 KERNELS = ("flash", "paged_decode", "quantize", "dequantize", "wkv", "ssd")
 
@@ -865,6 +941,8 @@ def expected_launches(cfg, prefills: int, tokens: int):
     L = cfg.n_layers
     if cfg.family == "rwkv6":
         want["wkv"] = L * prefills
+    elif cfg.family == "encdec":  # encoder + decoder self + cross; decode: self + cross
+        want.update(flash=(cfg.n_enc_layers + 2 * L) * prefills, paged_decode=2 * L * tokens)
     elif cfg.family == "hybrid":
         sites = n_attn_sites(cfg)
         want.update(flash=sites * prefills, paged_decode=sites * tokens, ssd=L * prefills)
@@ -880,6 +958,9 @@ def _widths(cfg):
 
     if cfg.family == "rwkv6":
         return dict(heads=cfg.n_heads, head=cfg.d_head, d_ff=cfg.d_ff)
+    if cfg.family == "encdec":
+        return dict(enc_layers=cfg.n_enc_layers, enc_frames=cfg.enc_frames, heads=cfg.n_heads,
+                    kv_heads=cfg.n_kv_heads, head=cfg.d_head, d_ff=cfg.d_ff)
     if cfg.family == "hybrid":
         return dict(ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state, d_inner=cfg.expand * cfg.d_model,
                     attn_sites=n_attn_sites(cfg), heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff)
@@ -902,17 +983,20 @@ def _cache(cfg, max_seq: int, f32: bool):
     return {k: v.float() for k, v in cache.items()} if f32 else cache
 
 
-def teacher_forced(cfg, params, prompt, fed, plain: bool):
-    """Prefill ``prompt``, then decode feeding ``fed`` one token at a time,
-    with f32 caches (for f32 weights); per-step logits (n, V) in f32."""
+def teacher_forced(cfg, params, prompt, fed, plain: bool, frames=None):
+    """Prefill ``prompt`` (an encdec model's on ``frames``), then decode
+    feeding ``fed`` one token at a time, with f32 caches (for f32 weights);
+    per-step logits (n, V) in f32."""
     import torch
 
+    from repro_torch.launch.serve_e2e import prefill_inputs
     from repro_torch.models import api
 
     prefill, decode = api.prefill_fn(cfg, plain), api.decode_fn(cfg, plain)
     with torch.inference_mode():
         cache = _cache(cfg, len(prompt) + len(fed), True)
-        _, cache = prefill(params, {"tokens": torch.tensor(prompt, device="cuda")[None, :]}, cache, 0)
+        toks = torch.tensor(prompt, device="cuda")[None, :]
+        _, cache = prefill(params, prefill_inputs(cfg, toks, frames), cache, 0)
         steps = []
         for i, tok in enumerate(fed):
             logits, cache = decode(params, torch.tensor([[tok]], device="cuda"), cache, len(prompt) + i)
@@ -920,20 +1004,22 @@ def teacher_forced(cfg, params, prompt, fed, plain: bool):
     return torch.stack(steps)
 
 
-def chained_prefill(cfg, params, toks, plain: bool, f32: bool):
+def chained_prefill(cfg, params, toks, plain: bool, f32: bool, frames=None):
     """Logits of the last PROMPT - HALF tokens from one prefill of the whole
     prompt, and from a prefill of HALF tokens followed by one of the rest at
-    pos HALF, the states carried in the cache."""
+    pos HALF, the states carried in the cache (an encdec model's prefills
+    all on the same ``frames``)."""
     import torch
 
+    from repro_torch.launch.serve_e2e import prefill_inputs
     from repro_torch.models import api
 
     prefill = api.prefill_fn(cfg, plain)
     with torch.inference_mode():
-        full, _ = prefill(params, {"tokens": toks}, _cache(cfg, PROMPT, f32), 0)
+        full, _ = prefill(params, prefill_inputs(cfg, toks, frames), _cache(cfg, PROMPT, f32), 0)
         cache = _cache(cfg, PROMPT, f32)
-        _, cache = prefill(params, {"tokens": toks[:, :HALF]}, cache, 0)
-        tail, _ = prefill(params, {"tokens": toks[:, HALF:]}, cache, HALF)
+        _, cache = prefill(params, prefill_inputs(cfg, toks[:, :HALF], frames), cache, 0)
+        tail, _ = prefill(params, prefill_inputs(cfg, toks[:, HALF:], frames), cache, HALF)
     return full[:, HALF:].float(), tail.float()
 
 
@@ -1057,11 +1143,15 @@ def phase_model(phase: str, seed: int, capture=None):
          weights_gb=f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f}",
          layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size, **_widths(cfg))
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, PROMPT).tolist()
+    frames = None  # an encdec model's stub frontend output, (1, enc_frames, d_model) bf16
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (1, cfg.enc_frames, cfg.d_model), dtype=np.float32)).to("cuda", torch.bfloat16)
 
     routing = RoutingRecorder() if moe else contextlib.nullcontext()
     kernels.reset_launch_counts()
     with routing:
-        tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda")
+        tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", frames=frames)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = expected_launches(cfg, 1, DECODE)
@@ -1083,7 +1173,7 @@ def phase_model(phase: str, seed: int, capture=None):
     plain_routing = RoutingRecorder() if moe else contextlib.nullcontext()
     with plain_routing:
         plain_tokens, _, plain_logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", plain_kernels=True,
-                                                      inputs=fed)
+                                                      inputs=fed, frames=frames)
     agree = sum(a == b for a, b in zip(plain_tokens, tokens)) / DECODE
     err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
     what = "teacher-forced plain path, bf16 (agreement and chaining not gated)"
@@ -1100,7 +1190,7 @@ def phase_model(phase: str, seed: int, capture=None):
         err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
         what = "teacher-forced plain path on the kernel path's routing, bf16 (agreement and chaining not gated)"
     toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
-    spread = {label: max_err(*chained_prefill(cfg, params, toks, plain, f32=False))
+    spread = {label: max_err(*chained_prefill(cfg, params, toks, plain, f32=False, frames=frames))
               for label, plain in (("kernel", False), ("plain", True))}
     line(phase, check=what, plain_tokens=plain_tokens, agreement=f"{agree:.3f}", logits_max_abs_err=f"{err:.4e}",
          max_abs_logit=f"{scale:.4f}", tol=f"{LOGIT_REL_TOL}*max|logit|={LOGIT_REL_TOL * scale:.4f}",
@@ -1111,8 +1201,9 @@ def phase_model(phase: str, seed: int, capture=None):
         failed.append("the kernel path and the plain path disagree in bf16")
 
     params32 = f32_tree(params)
-    k32 = teacher_forced(cfg, params32, prompt, fed, plain=False)
-    p32 = teacher_forced(cfg, params32, prompt, fed, plain=True)
+    frames32 = None if frames is None else frames.float()
+    k32 = teacher_forced(cfg, params32, prompt, fed, plain=False, frames=frames32)
+    p32 = teacher_forced(cfg, params32, prompt, fed, plain=True, frames=frames32)
     err, scale = max_err(k32, p32), float(p32.abs().max())
     agree = float((k32.argmax(-1) == p32.argmax(-1)).float().mean())
     line(phase, check="teacher-forced plain path, f32 weights and caches", agreement=f"{agree:.3f}",
@@ -1120,7 +1211,7 @@ def phase_model(phase: str, seed: int, capture=None):
          tol=f"{F32_LOGIT_REL_TOL}*max|logit|={F32_LOGIT_REL_TOL * scale:.4f}")
     if agree < MIN_TOKEN_AGREEMENT or err > F32_LOGIT_REL_TOL * scale or not bool(torch.isfinite(p32).all()):
         failed.append("the kernel path and the plain path disagree in f32")
-    full, tail = chained_prefill(cfg, params32, toks, plain=False, f32=True)
+    full, tail = chained_prefill(cfg, params32, toks, plain=False, f32=True, frames=frames32)
     cerr, cscale = max_err(tail, full), float(full.abs().max())
     line(phase, check=f"chained prefill {HALF}+{PROMPT - HALF} vs {PROMPT}, f32, kernel path",
          logits_max_abs_err=f"{cerr:.4e}", max_abs_logit=f"{cscale:.4f}",
@@ -1129,11 +1220,11 @@ def phase_model(phase: str, seed: int, capture=None):
         failed.append("chained prefill disagrees with the single-shot prefill")
     if failed:
         raise AssertionError(f"{phase}: " + "; ".join(failed))
-    del params32, k32, p32
+    del params32, frames32, k32, p32
     torch.cuda.empty_cache()
 
-    line(phase, **path_times(cfg, params, prompt, fed))
-    profile_prefill(cfg, params, toks, phase=phase, table=f"profile_prefill_{phase}.txt")
+    line(phase, **path_times(cfg, params, prompt, fed, frames))
+    profile_prefill(cfg, params, toks, phase=phase, table=f"profile_prefill_{phase}.txt", frames=frames)
     captured = capture(cfg, params, toks) if capture is not None else None
     del params
     torch.cuda.empty_cache()
@@ -1335,7 +1426,8 @@ def kernels_line(recs, counts):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
             "large": rec["large"],
         }
-        for extra in ("olmoe", "minicpm3", "zamba2", "slab", "large_minicpm3", "large_zamba2", "large_one"):
+        for extra in ("olmoe", "minicpm3", "zamba2", "slab", "large_minicpm3", "large_zamba2", "large_one",
+                      "whisper_encoder", "whisper_cross"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if entry["library_ms"] is None:
@@ -1372,6 +1464,7 @@ def main() -> int:
     zamba2_counts, _ = phase_model("zamba2", SEED)
     phase_model("olmoe", SEED)
     _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
+    phase_model("whisper", SEED)
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],

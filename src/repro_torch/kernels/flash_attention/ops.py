@@ -1,5 +1,8 @@
-"""Wrapper of the flash-attention kernel in model layout (B, S, H, D).
-V's head dim may differ from q's and k's (MLA: 96 and 64).
+"""Wrappers of the flash-attention kernel in model layout (B, S, H, D):
+``flash_attention`` (the reference wrapper's contract) and
+``flash_attention_full`` (every key visible, any key count: an encoder's
+self-attention and cross-attention).  V's head dim may differ from q's and
+k's (MLA: 96 and 64).
 
 A CUDA tensor launches ``csrc/flash_attention.cu``; a CPU tensor takes the
 plain version in ``ref.py``; any other device raises.  There is no
@@ -62,6 +65,18 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          lambda: _launch(q, k, v, causal, q_offset), inputs=(q, k, v))
 
 
+def flash_attention_full(q, k, v):
+    """Full (non-causal) attention of every query over every key: q (B, Sq,
+    H, D); k (B, Skv, KVH, D); v (B, Skv, KVH, Dv) -> (B, Sq, H, Dv) in q's
+    dtype.  Skv may be any length (whisper's 1500 encoder frames): the
+    kernel masks keys past Skv in its last tile, so nothing is padded and
+    no block multiple is asked for, unlike ``flash_attention``'s
+    non-causal contract."""
+    _check(q, k, v, 0)
+    return _build.run_on("flash_attention", q.device, lambda: flash_attention_plain(q, k, v, False, 0),
+                         lambda: _launch(q, k, v, False, 0), inputs=(q, k, v))
+
+
 def _launch(q, k, v, causal: bool, q_offset: int):
     global launches
     B, Sq, H, D = q.shape
@@ -102,4 +117,4 @@ _SIGNATURES = {
 }
 
 
-__all__ = ["design", "flash_attention", "attention_ref", "flash_attention_plain"]
+__all__ = ["design", "flash_attention", "flash_attention_full", "attention_ref", "flash_attention_plain"]

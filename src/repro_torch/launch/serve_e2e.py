@@ -52,18 +52,29 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def prefill_inputs(cfg, toks, frames=None) -> Dict:
+    """The prefill batch dict: ``tokens``, and for encdec the encoder's
+    input ``frames`` (B, enc_frames, d_model), which it needs."""
+    if cfg.family != "encdec":
+        return {"tokens": toks}
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill needs frames (B, enc_frames, d_model)")
+    return {"tokens": toks, "frames": frames}
+
+
 def greedy_decode(cfg, params, prompt: List[int], n_tokens: int, device,
-                  plain_kernels: bool = False, inputs: Optional[List[int]] = None):
+                  plain_kernels: bool = False, inputs: Optional[List[int]] = None, frames=None):
     """Prefill ``prompt`` and decode ``n_tokens`` greedily.  With ``inputs``,
     step i is fed ``inputs[i]`` instead of the previous argmax (teacher
-    forcing).  Returns (argmax tokens, the tokens fed, per-step logits
-    (n_tokens, V) as float32 on the device)."""
+    forcing).  An encdec model takes ``frames`` (1, enc_frames, d_model),
+    the encoder's input.  Returns (argmax tokens, the tokens fed, per-step
+    logits (n_tokens, V) as float32 on the device)."""
     prefill = api.prefill_fn(cfg, plain_kernels)
     decode = api.decode_fn(cfg, plain_kernels)
     with torch.inference_mode():
         toks = torch.tensor(prompt, dtype=torch.int64, device=device)[None, :]
         cache = api.init_cache(cfg, 1, len(prompt) + n_tokens, device)
-        logits, cache = prefill(params, {"tokens": toks}, cache, 0)
+        logits, cache = prefill(params, prefill_inputs(cfg, toks, frames), cache, 0)
         last = logits[:, -1:].argmax(-1)
         if inputs is not None:
             fed = torch.tensor(inputs, dtype=torch.int64, device=device)[:, None, None]

@@ -4,10 +4,11 @@ MLP and the sort-based top-k MoE.
 Parameters arrive as dict trees built from ``build_*_template``.  Dtypes
 follow the reference: bf16 storage, f32 for norms, RoPE, softmax and
 accumulation.  Attention goes through the port's two kernels: the flash
-kernel for prefill and the training forward, the paged decode kernel for
-single-token decode; ``plain_kernels=True`` calls their plain PyTorch
-versions instead (on any device), which is how a run on the card is held
-against the plain path.  The reference's direct/chunked split at
+kernel for prefill and the training forward (its full entry point, any
+key count, for non-causal attention: whisper's encoder and
+cross-attention), the paged decode kernel for single-token decode;
+``plain_kernels=True`` calls their plain PyTorch versions instead (on any
+device), which is how a run on the card is held against the plain path.  The reference's direct/chunked split at
 ``ATTN_CHUNK`` has no counterpart: both kernels are online-softmax loops.
 MLA's prefill runs the flash kernel at q/k head dim 96 and v head dim 64;
 its decode is the reference's absorbed path in latent space, plain torch
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention import paged_decode, paged_decode_ref
-from ..kernels.flash_attention import flash_attention, flash_attention_plain
+from ..kernels.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
 from .common import Spec
 
 F32 = torch.float32
@@ -96,7 +97,18 @@ def decode_index(B: int, S_max: int, kv_len: int, device):
     return tables, lens
 
 
-def _decode_over_cache(q, ck, cv, index, plain: bool):
+def attend(q, k, v, causal: bool, q_offset: int, plain: bool):
+    """Flash attention in model layout: causal through ``flash_attention``,
+    non-causal through ``flash_attention_full`` (every key visible, any key
+    count); ``plain`` runs the plain version instead."""
+    if plain:
+        return flash_attention_plain(q, k, v, causal, q_offset)
+    if causal:
+        return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return flash_attention_full(q, k, v)
+
+
+def decode_over_cache(q, ck, cv, index, plain: bool):
     """One query token per sequence against the dense cache viewed, without
     a copy, as KV pages: (B, S_max, KVH, Dh) -> (B*S_max/PAGE, PAGE, KVH, Dh)."""
     B, S_max, KVH, Dh = ck.shape
@@ -137,10 +149,9 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     cos, sin = rope_tables(positions, Dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    flash = flash_attention_plain if plain_kernels else flash_attention
 
     if cache is None:
-        out = flash(q, k, v, causal=cfg.causal, q_offset=q_offset)
+        out = attend(q, k, v, cfg.causal, q_offset, plain_kernels)
         new_cache = None
     else:
         ck, cv, pos = cache
@@ -151,9 +162,9 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         if S == 1:  # kv_len = pos + 1 masks exactly what causality would
             if index is None:
                 index = decode_index(B, ck.shape[1], pos + 1, x.device)
-            out = _decode_over_cache(q, ck, cv, index, plain_kernels)
+            out = decode_over_cache(q, ck, cv, index, plain_kernels)
         else:
-            out = flash(q, ck[:, :pos + S], cv[:, :pos + S], causal=cfg.causal, q_offset=pos)
+            out = attend(q, ck[:, :pos + S], cv[:, :pos + S], cfg.causal, pos, plain_kernels)
         new_cache = (ck, cv)
     out = torch.matmul(out.reshape(B, S, H * Dh), p["wo"])
     return out, new_cache
@@ -246,8 +257,7 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         v = torch.matmul(c_kv, p["wv_b"]).reshape(B, T, H, dv)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
-        flash = flash_attention_plain if plain_kernels else flash_attention
-        out = flash(q, k, v, causal=cfg.causal, q_offset=pos)
+        out = attend(q, k, v, cfg.causal, pos, plain_kernels)
     out = torch.matmul(out.reshape(B, S, H * dv), p["wo"])
     return out, new_cache
 

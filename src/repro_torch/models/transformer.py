@@ -1,11 +1,9 @@
 """Decoder-LM assembly for the dense (GQA or MLA attention), moe, rwkv6
 and hybrid families: one forward covering train (no cache), prefill (cache
-fill at a reused-prefix offset) and decode (single step).  Layers are
-stacked on a leading L axis, as in the reference, and driven by a Python
-loop in place of ``lax.scan``.
-
-The encdec family (Whisper) is not ported yet; it raises
-``NotImplementedError`` naming its item in ROADMAP.md.
+fill at a reused-prefix offset) and decode (single step), and the training
+loss.  Layers are stacked on a leading L axis, as in the reference, and
+driven by a Python loop in place of ``lax.scan``.  The encdec family
+(Whisper) is assembled in ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -22,17 +20,13 @@ from .ssm import (build_mamba2_template, build_rwkv6_template, mamba2_init_state
                   mamba2_state_specs, rwkv6_channel_mix, rwkv6_init_state, rwkv6_state_specs,
                   rwkv6_time_mix)
 
-PORTED = ("dense", "moe", "mla", "rwkv6", "hybrid")
-_NOT_PORTED = {
-    "encdec": "ROADMAP.md queue 1 item 6 (Whisper enc-dec)",
-}
+PORTED = ("dense", "moe", "mla", "rwkv6", "hybrid", "encdec")
 
 
 def require_ported(cfg) -> None:
     kind = "mla" if cfg.attention == "mla" else cfg.family
     if kind not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} family is not ported to PyTorch yet; see {_NOT_PORTED.get(kind, 'ROADMAP.md queue 1')}")
+        raise NotImplementedError(f"{cfg.name}: the port has no {kind} family")
 
 
 # ------------------------------------------------------------- templates
@@ -65,9 +59,9 @@ def build_block_template(cfg) -> Dict:
     }
 
 
-def _stack(template, L: int):
+def stacked(template, L: int):
     if isinstance(template, dict):
-        return {k: _stack(v, L) for k, v in template.items()}
+        return {k: stacked(v, L) for k, v in template.items()}
     return Spec((L,) + template.shape, template.dtype, template.init, template.scale)
 
 
@@ -75,7 +69,7 @@ def build_lm_template(cfg) -> Dict:
     D, V = cfg.d_model, cfg.vocab_size
     t = {
         "embed": Spec((V, D), scale=1.0),
-        "blocks": _stack(build_block_template(cfg), cfg.n_layers),
+        "blocks": stacked(build_block_template(cfg), cfg.n_layers),
         "final_norm": Spec((D,), init="ones"),
         "lm_head": Spec((D, V)),
     }
@@ -143,10 +137,10 @@ def embed_tokens(embed, tokens):
     return embed[tokens.clamp(0, embed.shape[0] - 1)]
 
 
-def _layer(tree, i: int):
+def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter tree."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -176,7 +170,7 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     if cfg.family == "rwkv6":
         live = cache if cache is not None else rwkv6_init_state(cfg, B, dev)
         for i in range(cfg.n_layers):
-            bp = _layer(blocks, i)
+            bp = layer_slice(blocks, i)
             h, (tshift, wkv) = rwkv6_time_mix(bp["time"], cfg, rms_norm(x, bp["ln1"]),
                                               (live["time_shift"][i], live["wkv"][i]), plain_kernels)
             x = x + h
@@ -192,7 +186,7 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
         if cache is not None and S == 1:
             index = decode_index(B, cache["attn_k"].shape[2], pos + 1, dev)
         for i in range(cfg.n_layers):
-            bp = _layer(blocks, i)
+            bp = layer_slice(blocks, i)
             h, (conv, ssm) = mamba2_mix(bp["mamba"], cfg, rms_norm(x, bp["norm"]),
                                         (live["conv"][i], live["ssm"][i]), plain_kernels)
             x = x + h
@@ -212,7 +206,7 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
         if cache is not None and S == 1 and not mla:
             index = decode_index(B, cache["k"].shape[2], pos + 1, dev)
         for i in range(cfg.n_layers):
-            bp = _layer(blocks, i)
+            bp = layer_slice(blocks, i)
             h = rms_norm(x, bp["attn_norm"])
             if mla:
                 layer_cache = None if cache is None else (cache["c"][i], cache["kr"][i], pos)
@@ -234,3 +228,22 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     x = rms_norm(x, params["final_norm"])
     logits = torch.matmul(x, params["lm_head"])
     return logits, cache, {"aux_loss": aux}
+
+
+# ------------------------------------------------------------------- loss
+def token_cross_entropy(logits, labels):
+    """Mean -log p(label) in f32 over the positions whose label is >= 0
+    (the rest are masked out); 0 when every label is masked."""
+    logp = torch.log_softmax(logits.to(F32), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def lm_loss(params, cfg, batch, aux_weight: float = 0.01, plain_kernels: bool = False):
+    """Training loss of a decoder LM on ``batch`` (tokens and labels, each
+    (B,S)): the cache-free forward, token cross-entropy plus ``aux_weight``
+    times the moe balance term -> (loss, {"ce", "aux"})."""
+    logits, _, aux = lm_forward(params, cfg, batch["tokens"], plain_kernels=plain_kernels)
+    ce = token_cross_entropy(logits, batch["labels"])
+    return ce + aux_weight * aux["aux_loss"], {"ce": ce, "aux": aux["aux_loss"]}

@@ -70,18 +70,22 @@ def calibrate_host_flops(smoke_cfg, n_tokens: int = 256, iters: int = 2, device=
                          seed: int = 0) -> float:
     """Achieved FLOP/s of a real prefill of ``smoke_cfg`` on ``device``:
     one warm-up prefill (kernel build and first launches), then ``iters``
-    timed ones, each ended by a device synchronise."""
+    timed ones, each ended by a device synchronise.  An encdec model
+    encodes zero frames, as the reference's calibration does."""
     import torch
 
     from ..models import api
 
     params = api.init_params(smoke_cfg, seed, device)
     pfn = api.prefill_fn(smoke_cfg)
-    toks = torch.zeros((1, n_tokens), dtype=torch.int64, device=device)
+    inputs = {"tokens": torch.zeros((1, n_tokens), dtype=torch.int64, device=device)}
+    if smoke_cfg.family == "encdec":
+        inputs["frames"] = torch.zeros((1, smoke_cfg.enc_frames, smoke_cfg.d_model), dtype=torch.bfloat16,
+                                       device=device)
 
     def step():
         cache = api.init_cache(smoke_cfg, 1, n_tokens, device)
-        return pfn(params, {"tokens": toks}, cache, 0)[0]
+        return pfn(params, inputs, cache, 0)[0]
 
     with torch.inference_mode():
         step()

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
 from repro_torch.kernels.kv_codec import dequantize, dequantize_ref, plan_for_quantize, quantize, quantize_ref
 from repro_torch.kernels.mamba2 import ssd, ssd_chunked, ssd_chunked_plain
 from repro_torch.kernels.rwkv6 import wkv, wkv_chunked_plain, wkv_model
@@ -66,6 +66,25 @@ def test_flash_kernel_matches_plain(dev, dtype, B, Sq, Skv, H, KVH, D, causal):
     ref = flash_attention_plain(q, k, v, causal, off)
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq", [1500, 128])
+def test_flash_full_kernel_over_ragged_keys(dev, dtype, Sq):
+    """Whisper's non-causal shapes through the full entry point: the
+    encoder's 1500 x 1500 (11 query tiles of 128 and one of 92) and prefill
+    cross-attention's 128 x 1500, 12 heads of 64; the last key tile holds 28
+    of 64 keys."""
+    g = torch.Generator(device=dev).manual_seed(Sq)
+    B, Skv, H, D = 1, 1500, 12, 64
+    q = _randn(g, (B, Sq, H, D), dtype, dev)
+    k, v = _randn(g, (B, Skv, H, D), dtype, dev), _randn(g, (B, Skv, H, D), dtype, dev)
+    reset_launch_counts()
+    out = flash_attention_full(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash"] == 1 and out.dtype == dtype
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, False, 0).float(), atol=atol, rtol=rtol)
 
 
 def test_flash_kernel_reads_a_strided_cache_slice(dev):
@@ -127,6 +146,26 @@ def test_paged_decode_kernel_across_splits(dev, dtype, page, NB, lens):
     for i, n in enumerate(lens):
         if n == 0:
             assert out[i].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_over_the_cross_cache(dev, dtype):
+    """Whisper's decode cross-attention: one query of 12 heads of 64 over
+    the cross cache of 1500 encoder frames laid out as 94 pages of 16
+    slots, the last 4 slots past kv_len (filled here, so an unmasked pad
+    slot would show)."""
+    g = torch.Generator(device=dev).manual_seed(1500)
+    H, D, page, NB = 12, 64, 16, 94
+    q = _randn(g, (1, H, D), dtype, dev)
+    kp, vp = _randn(g, (NB, page, H, D), dtype, dev), _randn(g, (NB, page, H, D), dtype, dev)
+    tables = torch.arange(NB, dtype=torch.int32, device=dev).view(1, NB)
+    lens = torch.tensor([1500], dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    out = paged_decode(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_decode"] == 1 and out.dtype == dtype
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), paged_decode_ref(q, kp, vp, tables, lens).float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -10,7 +10,9 @@ from parity_harness import BF16_TOL, F32_TOL, jax_from, np32, torch_from
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention, flash_attention_plain
+from repro.models.layers import sdpa as jax_sdpa
+from repro_torch.kernels.flash_attention import (attention_ref, flash_attention, flash_attention_full,
+                                                 flash_attention_plain)
 from repro_torch.kernels.flash_attention.ref import flash_tiles_plain
 
 
@@ -69,6 +71,25 @@ def test_flash_non_causal_matches_and_raises_like_the_reference():
     with pytest.raises(ValueError, match="non-causal"):
         jax_flash(jax_from(qn), jax_from(kn), jax_from(vn), causal=False, block_q=16, block_k=16,
                   interpret=True)
+
+
+@pytest.mark.parametrize("Sq", [1500, 128])
+def test_flash_full_matches_reference_sdpa_over_ragged_keys(Sq):
+    """The full entry point over whisper's 1500 encoder frames (no multiple
+    of any key block): the encoder's 1500 x 1500 and prefill
+    cross-attention's 128 x 1500, against the reference's ``sdpa`` with
+    causal=False (its chunked branch: keys padded to 2048, masked by
+    kv_len), f32.  The wrapper with the reference kernel's contract still
+    refuses the same call."""
+    B, Skv, H, KVH, D = 1, 1500, 4, 2, 64
+    qn, kn, vn = _inputs(Sq + Skv, B, Sq, Skv, H, KVH, D)
+    got = flash_attention_full(torch_from(qn), torch_from(kn), torch_from(vn))
+    q_pos = jnp.broadcast_to(jnp.arange(Sq, dtype=jnp.int32)[None], (B, Sq))
+    want = jax_sdpa(jax_from(qn), jax_from(kn), jax_from(vn), q_pos, jnp.full((B,), Skv, jnp.int32), causal=False)
+    assert got.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=F32_TOL, atol=F32_TOL)
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention(torch_from(qn), torch_from(kn), torch_from(vn), causal=False)
 
 
 def test_attention_ref_matches_reference_oracle_kernel_layout():

@@ -133,10 +133,11 @@ def test_param_tree_matches_the_reference_template():
     assert torch.equal(ours["blocks"]["attn"]["wq"], again["blocks"]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b", "minicpm3-4b", "whisper-small"])
 def test_moe_and_mla_param_trees_match_the_reference_template(arch):
-    """The moe and mla templates give the reference's keys and shapes, so
-    ``models.convert`` carries the reference's parameters across."""
+    """The moe, mla and encdec templates give the reference's keys, shapes
+    and dtypes, so ``models.convert`` carries the reference's parameters
+    across."""
     cfg = get_config(arch, smoke=True)
     jparams = jax_api.init_params(cfg, jax.random.key(0))
     flat = {jax.tree_util.keystr(p): tuple(a.shape) for p, a in jax.tree_util.tree_leaves_with_path(jparams)}
@@ -152,10 +153,3 @@ def test_moe_and_mla_param_trees_match_the_reference_template(arch):
 
     assert {k: v[0] for k, v in walk(mine)} == flat
     assert {k: v[1] for k, v in walk(mine)} == {k: v[1] for k, v in walk(ours)}  # router f32, the rest bf16
-
-
-@pytest.mark.parametrize("arch", ["whisper-small"])
-def test_unported_families_raise_with_their_roadmap_item(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        api.init_params(cfg, 0, "cpu")
