@@ -80,7 +80,25 @@ Phases, in order, one line each:
                    the plan each kernel launches (one pass or split-T,
                    slabs, vector width); device times, with torch.mul(q, s,
                    out=out) beside dequantize (yardstick only)
- 15. kernels       one JSON line describing the six kernels
+ 15. train         the port's training path (no kernel on it: launch counters
+                   reset at its start read 0 for all six at its end), in
+                   four parts: bf16 gradients of qwen3-14b at full width, 2
+                   layers, against those of an f32 copy of the weights, leaf
+                   by leaf, and the embedding's backward in bf16; one AdamW
+                   step on the card against the CPU on one block's
+                   full-width leaves, f32 moments and bf16 m with a factored
+                   v; 4 train steps of qwen3-14b at full width, 8 of 40
+                   layers (SyntheticLM batches of 8 x 128 from seed 0, the
+                   loop's default optimizer), each with its loss, grad norm,
+                   lr, step ms, forward+backward and optimizer ms (CUDA
+                   events), tokens/s, model-FLOP share and peak memory, a
+                   forward through the kernels under grad that must raise,
+                   a profile of one step, then two steps with bf16 m and a
+                   factored v; and examples/train_smoke_torch.py
+                   --simulate-crash on the card in a subprocess
+                   (deterministic algorithms), whose losses after the resume
+                   must replay the uninterrupted run's
+ 16. kernels       one JSON line describing the six kernels
 
 Every phase runs on every call.  Any failed phase raises and the exit code
 is nonzero.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -724,12 +742,8 @@ def phase_decode_check(cfg, params, res):
 
 def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "profile_prefill.txt", frames=None):
     """torch.profiler over one warm kernel-path prefill (an encdec model's
-    on ``frames``): device busy time (sum of kernel times, one stream)
-    against the synchronised wall time, and the kernels that take it.  The
-    table is written to the file ``table`` in the output directory beside
-    this script."""
+    on ``frames``), as ``profile_call`` reports it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve_e2e import prefill_inputs
     from repro_torch.models import api
@@ -742,10 +756,21 @@ def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "pro
             pfn(params, inputs, api.init_cache(cfg, 1, toks.shape[1], "cuda"), 0)
 
     prefill()
+    profile_call(prefill, phase, table, f"one warm {toks.shape[1]}-token prefill, kernel path, under torch.profiler")
+
+
+def profile_call(fn, phase: str, table: str, what: str):
+    """torch.profiler over one call of ``fn``: device busy time (sum of
+    kernel times, one stream) against the synchronised wall time, and the
+    kernels that take it.  The table is written to the file ``table`` in
+    the output directory beside this script."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -755,8 +780,7 @@ def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "pro
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", table), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=30))
-    line(phase, what=f"one warm {toks.shape[1]}-token prefill, kernel path, under torch.profiler",
-         wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
+    line(phase, what=what, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
          idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
          top=";".join(f"{e.key[:40]}:{e.self_device_time_total / 1e3:.3f}ms" for e in top))
 
@@ -1397,6 +1421,373 @@ def phase_kv_codec(serve_blocks, slab):
     return rec_q, rec_d, counts
 
 
+# ----------------------------------------------------------------- training
+# qwen3-14b at full width, depth cut: 8 of 40 layers is 4.20 B parameters,
+# whose bf16 weights and gradients and f32 AdamW moments take 50.4 GB of
+# the card's 80; 40 layers would take ~177 GB
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the train loop's DataConfig
+GRAD_LAYERS = 2  # the bf16-vs-f32 gradient check: both copies and their gradients fit beside each other
+# bf16 gradients against those of an f32 copy of the same weights: the share
+# the model phases allow bf16 logits (LOGIT_REL_TOL), per leaf, as a norm
+GRAD_REL_TOL = 0.05
+# the optimizer on the card against the CPU: both run the same f32
+# operations as separate kernels; the reductions (gradient norm, factored
+# means) sum in another order
+OPT_STATE_RTOL = 1e-6
+OPT_ULP_SHARE = 1e-3  # bf16 parameters: one step apart on under 0.1 % of entries
+# the reference's crash-resume tolerance (tests/test_training.py:118)
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) in tree_flatten order."""
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree) for nl in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _train_batch(cfg, step: int):
+    import torch
+
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED))
+    return {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(step).items()}
+
+
+def _state_gb(state) -> float:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+
+
+def train_grad_check(base):
+    """(b) bf16 gradients of a 2-layer full-width qwen3-14b on one batch
+    against the gradients of an f32 copy of the same weights, leaf by leaf;
+    and the embedding's backward in bf16 (the gather's, as the model takes
+    it, and F.embedding's) against an f32 accumulation of the same
+    upstream gradient."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.training.loop import loss_and_grads
+
+    cfg = dataclasses.replace(base, n_layers=GRAD_LAYERS)
+    params = api.init_params(cfg, SEED, "cuda")
+    batch = _train_batch(cfg, 0)
+    lfn = api.loss_fn(cfg, plain_kernels=True)
+    loss16, _, g16 = loss_and_grads(lfn, params, batch)
+    params32 = f32_tree(params)
+    loss32, _, g32 = loss_and_grads(lfn, params32, batch)
+    del params32
+    names = [n for n, _ in _named_leaves(params)]
+    gaps = {n: float((a.float() - b).norm() / b.norm()) for n, a, b in zip(names, g16, g32)}
+    worst = max(gaps, key=gaps.get)
+    line("train", check=f"bf16 gradients vs an f32 copy of the weights, qwen3-14b {GRAD_LAYERS} of "
+         f"{base.n_layers} layers at full width, one {TRAIN_BATCH}x{TRAIN_SEQ} batch",
+         params=sum(t.numel() for t in g16), loss_bf16=f"{float(loss16):.5f}", loss_f32=f"{float(loss32):.5f}",
+         worst_leaf=worst, worst_rel_gap=f"{gaps[worst]:.4e}", embed_rel_gap=f"{gaps['embed']:.4e}",
+         tol=GRAD_REL_TOL)
+    line("train", rel_gaps=",".join(f"{n}:{g:.3e}" for n, g in gaps.items()))
+    del g16, g32, params
+    torch.cuda.empty_cache()
+
+    # the embedding's backward in bf16: indexing (index_put_ with accumulate,
+    # as embed_tokens' gather differentiates) and F.embedding's own backward,
+    # each against an f32 index_add_ of the same bf16 upstream gradient
+    ids = batch["tokens"].reshape(-1).long()
+    V, D = base.vocab_size, base.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dx = torch.randn((ids.numel(), D), generator=gen, device="cuda").to(torch.bfloat16)
+    want = torch.zeros((V, D), device="cuda").index_add_(0, ids, dx.float())
+    table = torch.zeros((V, D), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    (g_index,) = torch.autograd.grad(table[ids], table, dx)
+    g_embed = torch.ops.aten.embedding_dense_backward(dx, ids, V, -1, False)
+    rel = {k: float((g.float() - want).norm() / want.norm()) for k, g in (("index", g_index), ("embedding", g_embed))}
+    counts = torch.bincount(ids, minlength=V)
+    line("train", check="embedding backward in bf16 vs f32 accumulation of the same upstream gradient",
+         tokens=ids.numel(), distinct=int((counts > 0).sum()), max_repeats=int(counts.max()),
+         index_put_rel_gap=f"{rel['index']:.4e}", embedding_backward_rel_gap=f"{rel['embedding']:.4e}")
+    del want, table, g_index, g_embed, dx
+    torch.cuda.empty_cache()
+    if gaps[worst] > GRAD_REL_TOL or not all(map(torch.isfinite, (loss16, loss32))):
+        raise AssertionError(f"train: bf16 gradient of {worst} is {gaps[worst]:.3e} from the f32 one "
+                             f"(limit {GRAD_REL_TOL})")
+
+
+def train_optimizer_check():
+    """(c) one apply_updates on the card against the same on the CPU, on
+    the full-width leaves of one qwen3-14b block (wq, w_down, attn_norm) and
+    the 1-D final norm, from a state at step 7, with f32 moments and with
+    bf16 m and a factored v."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.training import optim
+
+    D, F = 5120, 17408
+    shapes = {"blocks": {"attn": {"wq": (1, D, D)}, "attn_norm": (1, D), "mlp": {"w_down": (1, F, D)}},
+              "final_norm": (D,)}
+    leaves, treedef = tree_flatten(shapes)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def draw(scale, dtype=torch.float32, positive=False):
+        out = []
+        for shape in leaves:
+            x = torch.rand(shape, generator=gen) if positive else torch.randn(shape, generator=gen)
+            out.append((x * scale).to(dtype))
+        return out
+
+    params = draw(D**-0.5, torch.bfloat16)
+    grads = draw(1e-4, torch.bfloat16)
+    base = optim.OptimizerConfig(warmup_steps=2, total_steps=50)
+    for label, ocfg in (("f32 moments", base),
+                        ("bf16 m, factored v", dataclasses.replace(base, moment_dtype="bfloat16",
+                                                                   factored_second_moment=True))):
+        mdt = torch.bfloat16 if ocfg.moment_dtype == "bfloat16" else torch.float32
+        m = [t.to(mdt) for t in draw(1e-4)]
+        v = []
+        for shape in leaves:
+            if ocfg.factored_second_moment and optim._is_factored(shape):
+                v.append({"vc": torch.rand(shape[:-2] + shape[-1:], generator=gen) * 1e-8,
+                          "vr": torch.rand(shape[:-1], generator=gen) * 1e-8})
+            else:
+                v.append({"v": torch.rand(shape, generator=gen) * 1e-8})
+        out = {}
+        for dev in ("cuda", "cpu"):
+            to = lambda ts: [t.to(dev, copy=True) for t in ts]  # noqa: E731
+            p = tree_unflatten(treedef, to(params))
+            state = {"step": torch.tensor(7, dtype=torch.int32, device=dev), "m": tree_unflatten(treedef, to(m)),
+                     "v": tree_unflatten(treedef, [{k: t.to(dev, copy=True) for k, t in d.items()} for d in v])}
+            optim.apply_updates(ocfg, p, tree_unflatten(treedef, to(grads)), state)
+            out[dev] = (tree_flatten(p)[0], tree_flatten(state["m"])[0], tree_flatten(state["v"])[0])
+        state_err, m_ulps, steps, differ, total = 0.0, 0, 0.0, 0, 0
+        for a, b in zip(out["cuda"][1] + out["cuda"][2], out["cpu"][1] + out["cpu"][2]):
+            a = a.cpu()
+            if a.dtype == torch.float32:
+                state_err = max(state_err, float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+            else:  # bf16 m: the same f32 value on both, rounded once
+                m_ulps = max(m_ulps, int((a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max()))
+        for a, b, p0 in zip(out["cuda"][0], out["cpu"][0], params):
+            # in bf16 steps at the larger of the parameter before and after
+            # the update: where p - lr·upd cancels to near zero (or p is near
+            # zero and the update is not), an f32 difference at the operands'
+            # scale is many steps of the small value
+            d = (a.cpu().float() - b.float()).abs()
+            steps = max(steps, float((d / _bf16_step(torch.maximum(p0.abs(), b.abs()))).max()))
+            differ, total = differ + int((d > 0).sum()), total + d.numel()
+        moved = sum(int((b != p0).sum()) for b, p0 in zip(out["cpu"][0], params))
+        line("train", check=f"optimizer on the card vs the CPU, {label}", leaves="wq,w_down,attn_norm,final_norm",
+             entries=total, state_max_rel_err=f"{state_err:.3e}", state_rtol=OPT_STATE_RTOL, m_bf16_max_ulps=m_ulps,
+             params_max_bf16_steps=f"{steps:.3f}", params_differing=differ, share=f"{differ / total:.2e}",
+             share_limit=OPT_ULP_SHARE, params_moved_by_the_step=moved)
+        if state_err > OPT_STATE_RTOL or m_ulps > 1 or steps > 1 or differ > OPT_ULP_SHARE * total or moved < total // 2:
+            raise AssertionError(f"train: the optimizer on the card disagrees with the CPU ({label})")
+        del out
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at |x|: 2^(e - 8) for |x| in [2^(e-1), 2^e)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), torch.frexp(x.float().abs())[1] - 8)
+
+
+def _matmul_params(params) -> int:
+    """Parameters that enter a matmul: the stacked 3-D block weights and
+    lm_head (the embedding is a gather, the norm scales elementwise)."""
+    return sum(t.numel() for n, t in _named_leaves(params) if t.dim() == 3 or n == "lm_head")
+
+
+class OptimizerEvents:
+    """While active, records a CUDA event just before and just after every
+    ``optim.apply_updates`` call of the train step: forward+backward ms and
+    optimizer ms on the device's clock.  Changes nothing it times."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.training import optim
+
+        self.optim, self.orig, self.events = optim, optim.apply_updates, []
+
+        def timed(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        optim.apply_updates = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.optim.apply_updates = self.orig
+
+
+def train_steps(base):
+    """(a) TRAIN_STEPS steps of the train loop's step on qwen3-14b at full
+    width, TRAIN_LAYERS layers, the loop's default optimizer (f32 moments),
+    SyntheticLM batches from seed 0; the grad guard; a profile of one step;
+    then two steps with bf16 m and a factored v."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.training import optim
+    from repro_torch.training.loop import default_optimizer, loss_and_grads, make_train_step
+
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    n_params, n_matmul = count_params(params), _matmul_params(params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs of one step: 6 per matmul parameter per token (forward and
+    # backward) and causal attention counted whole, 12·L·H·Dh·S per token
+    flops = 6 * n_matmul * tokens + 12 * cfg.n_layers * cfg.n_heads * cfg.d_head * TRAIN_SEQ * tokens
+    line("train", arch=cfg.name, layers=f"{cfg.n_layers} of {base.n_layers}", d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+         matmul_params=n_matmul, init_params_s=f"{time.perf_counter() - t0:.2f}",
+         reduced=f"n_layers {base.n_layers}->{cfg.n_layers} (optimizer state of 40 layers does not fit one card)")
+
+    # the kernels have no backward: the train step's forward with them raises
+    batch = _train_batch(cfg, 0)
+    try:
+        loss_and_grads(api.loss_fn(cfg, plain_kernels=False), params, batch)
+    except RuntimeError as e:
+        if "plain_kernels=True" not in str(e):
+            raise
+        line("train", check="forward through the kernels under grad raises the grad guard",
+             error=str(e).split(";")[0].replace(" ", "_"))
+    else:
+        raise AssertionError("train: a forward through the kernels under grad did not raise")
+
+    ocfg = default_optimizer(TRAIN_STEPS)
+    state = optim.init_state(ocfg, params)
+    step_fn = make_train_step(cfg, ocfg)
+    f32_state_gb = _state_gb(state)
+    line("train", optimizer=f"lr {ocfg.lr}, warmup {ocfg.warmup_steps}, total {ocfg.total_steps}, "
+         f"moments {ocfg.moment_dtype}", state_gb=f"{f32_state_gb:.2f}",
+         weights_gb=f"{sum(t.numel() * t.element_size() for _, t in _named_leaves(params)) / 1e9:.2f}",
+         flops_per_step=f"{flops:.4e}", mfu_formula="(6*matmul_params*tokens+12*L*H*Dh*S*tokens)/step_s/989e12")
+
+    def timed_step(step_fn, state, step):
+        batch = _train_batch(cfg, step)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with OptimizerEvents() as ev:
+            begin = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            begin.record()
+            _, state, met = step_fn(params, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        (o0, o1), = ev.events
+        return state, met, wall, begin.elapsed_time(o0), o0.elapsed_time(o1)
+
+    steps = []
+    for step in range(TRAIN_STEPS):
+        state, met, wall, fb_ms, opt_ms = timed_step(step_fn, state, step)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        steps.append(wall)
+        line("train", step=step + 1, loss=f"{loss:.5f}", grad_norm=f"{gnorm:.4f}", lr=f"{float(met['lr']):.4e}",
+             step_ms=f"{wall:.3f}", fwd_bwd_ms=f"{fb_ms:.3f}", optimizer_ms=f"{opt_ms:.3f}",
+             tokens_per_s=f"{tokens / wall * 1e3:.1f}", mfu=f"{flops / (wall * 1e-3) / BF16_FLOP_PER_S:.4f}",
+             peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train: step {step + 1} has a non-finite loss or grad norm")
+    warm = statistics.median(steps[1:])
+    line("train", what=f"median of steps 2-{TRAIN_STEPS}", step_ms=f"{warm:.3f}",
+         tokens_per_s=f"{tokens / warm * 1e3:.1f}", mfu=f"{flops / (warm * 1e-3) / BF16_FLOP_PER_S:.4f}")
+    batch = _train_batch(cfg, TRAIN_STEPS)
+    profile_call(lambda: step_fn(params, state, batch), "train", "profile_train_step.txt",
+                 f"one train step (step {TRAIN_STEPS + 1}), under torch.profiler")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # the memory options the reference gives kimi-k2: bf16 m, factored v
+    ocfg = dataclasses.replace(ocfg, moment_dtype="bfloat16", factored_second_moment=True)
+    state = optim.init_state(ocfg, params)
+    lean_gb = _state_gb(state)
+    step_fn = make_train_step(cfg, ocfg)
+    for step in range(2):
+        state, met, wall, fb_ms, opt_ms = timed_step(step_fn, state, step)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        line("train", options="bf16 m, factored v", step=step + 1, state_gb=f"{lean_gb:.2f}",
+             f32_state_gb=f"{f32_state_gb:.2f}", loss=f"{loss:.5f}", grad_norm=f"{gnorm:.4f}", step_ms=f"{wall:.3f}",
+             fwd_bwd_ms=f"{fb_ms:.3f}", optimizer_ms=f"{opt_ms:.3f}",
+             peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError("train: the step with bf16 m and a factored v is not finite")
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def train_resume():
+    """(d) examples/train_smoke_torch.py --simulate-crash on the card in a
+    subprocess, deterministic algorithms on: qwen3-14b-smoke for 12 steps
+    uninterrupted, then crashed after step 4 with checkpoints every 3 and
+    resumed from step 3; the losses after the resume against the
+    uninterrupted run's."""
+    import tempfile
+
+    import numpy as np
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as ckpt_dir:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(HERE, "examples", "train_smoke_torch.py"),
+                              "--simulate-crash", "--device", "cuda", "--steps", "12", "--ckpt-every", "3",
+                              "--ckpt-dir", ckpt_dir], capture_output=True, text=True, env=env, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"train: the crash/resume run failed ({out.returncode}): "
+                             f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    k = res["resumed_from"]
+    got, want = np.array(res["resumed"]), np.array(res["full"][k:])
+    ok = k == 3 and got.shape == want.shape and bool(np.allclose(got, want, rtol=RESUME_RTOL, atol=RESUME_ATOL))
+    line("train", check="crash after step 4 and resume on the card, qwen3-14b-smoke, deterministic algorithms",
+         resumed_from=k, steps_compared=len(got), max_abs_gap=f"{float(np.max(np.abs(got - want))):.3e}",
+         tol=f"rtol{RESUME_RTOL}+atol{RESUME_ATOL}", seconds=f"{time.perf_counter() - t0:.1f}")
+    if not ok:
+        raise AssertionError("train: the losses after the resume do not replay the uninterrupted run")
+
+
+def phase_train():
+    """The port's training path on the card: (b) gradients, (c) the
+    optimizer, (a) full-width steps and the memory options, (d) crash and
+    resume.  Every kernel's launch count reads 0 over the phase: training
+    runs the plain versions, as the reference trains through its plain
+    attention and scans."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    base = get_config(ARCH)
+    kernels.reset_launch_counts()
+    train_grad_check(base)
+    train_optimizer_check()
+    train_steps(base)
+    train_resume()
+    counts = kernels.launch_counts()
+    line("train", launches=json.dumps(counts).replace(" ", ""))
+    if any(counts.values()):
+        raise AssertionError(f"train: kernels launched on the training path: {counts}")
+    torch.cuda.empty_cache()
+
+
 def kernels_line(recs, counts):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main path that runs it: the qwen3-14b serve for flash and
@@ -1466,6 +1857,7 @@ def main() -> int:
     _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
     phase_model("whisper", SEED)
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
+    phase_train()
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}

@@ -31,6 +31,7 @@ from ..cache.hierarchy import CacheHierarchy
 from ..configs import get_config
 from ..core.sharded_store import ShardedKVBlockStore
 from ..models import api
+from ..models.common import resolve_device
 from ..runtime import RuntimeServices
 from ..serving import ComputeModel, ServingEngine
 from ..serving.real_prefill import make_real_prefill
@@ -40,16 +41,6 @@ BLOCK = 16
 PROMPT = 128
 DECODE_TOKENS = 8
 N_SHARDS = 4
-
-
-def resolve_device(device) -> torch.device:
-    """The device a run asked for; a CUDA device that is not there raises
-    rather than falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' asked for, but no CUDA device is available; "
-                           "pass device='cpu' to run on the CPU")
-    return dev
 
 
 def prefill_inputs(cfg, toks, frames=None) -> Dict:

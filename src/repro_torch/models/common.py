@@ -25,11 +25,46 @@ class Spec:
     scale: float = 1.0
 
 
+_LEAF = object()  # a leaf's place in a tree definition
+
+
+def tree_flatten(tree, is_leaf=None) -> Tuple[List, Any]:
+    """(leaves, treedef) in ``jax.tree.flatten``'s order: dict keys sorted
+    at every level; ``None`` is an empty subtree, as in JAX; a subtree for
+    which ``is_leaf`` is true is one leaf.  The optimizer walks its leaves
+    in this order and a checkpoint numbers them so, which is what lets
+    either package read the other's checkpoints."""
+    if tree is None:
+        return [], None
+    if isinstance(tree, dict) and not (is_leaf is not None and is_leaf(tree)):
+        leaves, defs = [], {}
+        for k in sorted(tree):
+            sub, defs[k] = tree_flatten(tree[k], is_leaf)
+            leaves += sub
+        return leaves, defs
+    return [tree], _LEAF
+
+
+def tree_unflatten(treedef, leaves) -> Any:
+    """Inverse of ``tree_flatten``: ``leaves`` in its order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is _LEAF:
+            return next(it)
+        if d is None:
+            return None
+        return {k: build(v) for k, v in d.items()}
+
+    out = build(treedef)
+    if next(it, _LEAF) is not _LEAF:
+        raise ValueError("more leaves than the tree definition has places")
+    return out
+
+
 def tree_leaves(tree) -> List:
     """Leaves in sorted-key order (the order ``jax.tree.flatten`` uses)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+    return tree_flatten(tree)[0]
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -70,6 +105,16 @@ def tree_init(template, seed: int = 0, device="cuda") -> Dict:
         return init_leaf(tree, device, seed * 1_000_003 + next(counter))
 
     return build(template)
+
+
+def resolve_device(device) -> torch.device:
+    """The device a run asked for; a CUDA device that is not there raises
+    rather than falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' asked for, but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
 
 
 def count_params(tree) -> int:

@@ -22,7 +22,7 @@ import torch
 from .common import Spec, tree_init
 from .layers import (F32, decode_over_cache, attend, build_gqa_template, build_mlp_template, decode_index,
                      gqa_attention, rms_norm, swiglu_mlp)
-from .transformer import cache_len, embed_tokens, layer_slice, stacked, token_cross_entropy
+from .transformer import cache_len, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack
 
 
 # ------------------------------------------------------------- templates
@@ -109,13 +109,17 @@ def encode(params, cfg, frames, plain_kernels: bool = False):
     enc_cfg = dataclasses.replace(cfg, causal=False)
     B, T, _ = frames.shape
     positions = torch.arange(T, dtype=torch.int32, device=frames.device)[None, :].expand(B, T)
-    x = frames
-    for i in range(cfg.n_enc_layers):
-        bp = layer_slice(params["enc_blocks"], i)
+
+    def enc_block(x, bp):
         h, _ = gqa_attention(bp["attn"], enc_cfg, rms_norm(x, bp["attn_norm"]), positions,
                              plain_kernels=plain_kernels)
         x = x + h
-        x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+        return x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+
+    block = checkpointed(enc_block, cfg.remat)
+    x = frames
+    for bp in unstack(params["enc_blocks"], cfg.n_enc_layers):
+        x = block(x, bp)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -161,8 +165,7 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
         if memory is None:
             cross_index = decode_index(B, cache["cross_k"].shape[2], T, dev)
 
-    for i in range(cfg.n_layers):
-        bp = layer_slice(params["dec_blocks"], i)
+    def dec_block(x, bp, i):
         self_cache = None if cache is None else (cache["self_k"][i], cache["self_v"][i], pos)
         h, _ = gqa_attention(bp["self_attn"], cfg, rms_norm(x, bp["self_norm"]), positions, self_cache,
                              q_offset=pos, plain_kernels=plain_kernels, index=self_index)
@@ -180,7 +183,11 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
         else:
             x = x + cross_attention(bp["cross"], cfg, hx, cache["cross_k"][i][:, :T], cache["cross_v"][i][:, :T],
                                     plain_kernels)
-        x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+        return x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+
+    block = checkpointed(dec_block, cfg.remat and cache is None)
+    for i, bp in enumerate(unstack(params["dec_blocks"], cfg.n_layers)):
+        x = block(x, bp, i)
 
     x = rms_norm(x, params["final_norm"])
     return torch.matmul(x, params["lm_head"]), cache

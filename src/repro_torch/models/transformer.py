@@ -8,9 +8,11 @@ driven by a Python loop in place of ``lax.scan``.  The encdec family
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from .common import Spec, tree_init
 from .layers import (F32, PAGE, build_gqa_template, build_mla_template, build_mlp_template,
@@ -137,11 +139,26 @@ def embed_tokens(embed, tokens):
     return embed[tokens.clamp(0, embed.shape[0] - 1)]
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree."""
+def unstack(tree, n: int):
+    """The ``n`` per-layer trees of a stacked parameter tree, each leaf
+    unbound once along its leading L axis.  The backward of an unbind is one
+    stack of the per-layer gradients; indexing each layer (``leaf[i]``)
+    instead would write a zero-filled full-size gradient per layer for
+    autograd to add up."""
     if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
+def checkpointed(block, remat: bool):
+    """``block`` itself, or ``block`` under activation checkpointing when
+    ``remat``: its activations are recomputed in the backward instead of
+    kept (the reference's ``jax.checkpoint`` of the layer-scan body).  The
+    forward values are the same either way."""
+    if not remat:
+        return block
+    return functools.partial(torch.utils.checkpoint.checkpoint, block, use_reentrant=False)
 
 
 def _store(cache, i: int, **states) -> None:
@@ -164,18 +181,25 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
-    blocks = params["blocks"]
+    layers = unstack(params["blocks"], cfg.n_layers)
     aux = torch.zeros((), dtype=F32, device=dev)
+
+    remat = cfg.remat and cache is None  # the reference checkpoints the cache-free scan body
 
     if cfg.family == "rwkv6":
         live = cache if cache is not None else rwkv6_init_state(cfg, B, dev)
+
+        def rwkv6_block(x, bp, tshift, wkv, cshift):
+            h, (tshift, wkv) = rwkv6_time_mix(bp["time"], cfg, rms_norm(x, bp["ln1"]), (tshift, wkv),
+                                              plain_kernels)
+            x = x + h
+            h, cshift = rwkv6_channel_mix(bp["chan"], cfg, rms_norm(x, bp["ln2"]), cshift)
+            return x + h, tshift, wkv, cshift
+
+        block = checkpointed(rwkv6_block, remat)
         for i in range(cfg.n_layers):
-            bp = layer_slice(blocks, i)
-            h, (tshift, wkv) = rwkv6_time_mix(bp["time"], cfg, rms_norm(x, bp["ln1"]),
-                                              (live["time_shift"][i], live["wkv"][i]), plain_kernels)
-            x = x + h
-            h, cshift = rwkv6_channel_mix(bp["chan"], cfg, rms_norm(x, bp["ln2"]), live["chan_shift"][i])
-            x = x + h
+            x, tshift, wkv, cshift = block(x, layers[i], live["time_shift"][i], live["wkv"][i],
+                                           live["chan_shift"][i])
             if cache is not None:
                 _store(cache, i, time_shift=tshift, wkv=wkv, chan_shift=cshift)
 
@@ -185,13 +209,10 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
         index = None
         if cache is not None and S == 1:
             index = decode_index(B, cache["attn_k"].shape[2], pos + 1, dev)
-        for i in range(cfg.n_layers):
-            bp = layer_slice(blocks, i)
-            h, (conv, ssm) = mamba2_mix(bp["mamba"], cfg, rms_norm(x, bp["norm"]),
-                                        (live["conv"][i], live["ssm"][i]), plain_kernels)
+
+        def hybrid_block(x, bp, conv, ssm, i):
+            h, (conv, ssm) = mamba2_mix(bp["mamba"], cfg, rms_norm(x, bp["norm"]), (conv, ssm), plain_kernels)
             x = x + h
-            if cache is not None:
-                _store(cache, i, conv=conv, ssm=ssm)
             if i % cfg.attn_every == 0:  # shared attention site i // attn_every
                 site = i // cfg.attn_every
                 site_cache = None if cache is None else (cache["attn_k"][site], cache["attn_v"][site], pos)
@@ -199,14 +220,21 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
                                      q_offset=pos, plain_kernels=plain_kernels, index=index)
                 x = x + h
                 x = x + swiglu_mlp(sp["mlp"], rms_norm(x, sp["mlp_norm"]))
+            return x, conv, ssm
+
+        block = checkpointed(hybrid_block, remat)
+        for i in range(cfg.n_layers):
+            x, conv, ssm = block(x, layers[i], live["conv"][i], live["ssm"][i], i)
+            if cache is not None:
+                _store(cache, i, conv=conv, ssm=ssm)
 
     else:
         mla = cfg.attention == "mla"
         index = None
         if cache is not None and S == 1 and not mla:
             index = decode_index(B, cache["k"].shape[2], pos + 1, dev)
-        for i in range(cfg.n_layers):
-            bp = layer_slice(blocks, i)
+
+        def attn_block(x, aux, bp, i):
             h = rms_norm(x, bp["attn_norm"])
             if mla:
                 layer_cache = None if cache is None else (cache["c"][i], cache["kr"][i], pos)
@@ -224,6 +252,11 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
                 aux = aux + cfg.n_experts * torch.sum(me * me)  # the reference's mean-prob balance proxy
             else:
                 x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+            return x, aux
+
+        block = checkpointed(attn_block, remat)
+        for i in range(cfg.n_layers):
+            x, aux = block(x, aux, layers[i], i)
 
     x = rms_norm(x, params["final_norm"])
     logits = torch.matmul(x, params["lm_head"])

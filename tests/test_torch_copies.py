@@ -1,5 +1,6 @@
 """The port keeps byte-identical copies of the reference's jax-free modules
-(configs, core, cache, runtime, obs, workload, serving/engine).  Each pair
+(configs, core, cache, runtime, obs, workload, serving/engine,
+training/data).  Each pair
 is read as bytes and compared; neither is imported, so drift in either
 package shows here."""
 
@@ -16,7 +17,8 @@ def _copied():
     for pkg in ("configs", "core", "runtime", "workload"):
         files += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py"))
     files += ["cache/__init__.py", "cache/radix.py", "cache/hierarchy.py",
-              "obs/__init__.py", "obs/metrics.py", "obs/tracing.py", "serving/engine.py"]
+              "obs/__init__.py", "obs/metrics.py", "obs/tracing.py", "serving/engine.py",
+              "training/data.py"]
     return files
 
 

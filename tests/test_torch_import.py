@@ -45,6 +45,33 @@ def test_port_imports_and_prefills_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) >= 40  # every copied and ported module
 
 
+def test_training_runs_with_jax_repro_and_ml_dtypes_blocked(tmp_path):
+    """``repro_torch.training`` and ``repro_torch.launch.train`` import and
+    run on the CPU with ``jax``, ``repro`` and ``ml_dtypes`` blocked: the
+    launcher trains qwen3-14b-smoke for 3 steps with a checkpoint at step
+    2, then a second launch resumes from it (restore reads the bf16
+    leaves without ml_dtypes)."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+            sys.modules[name] = None
+        import repro_torch.training, repro_torch.training.optim, repro_torch.training.checkpoint
+        from repro_torch.launch.train import main
+        argv = ["--steps", "3", "--ckpt-every", "2", "--ckpt-dir", {str(tmp_path)!r}, "--device", "cpu"]
+        first = main(argv)
+        again = main(["--steps", "4"] + argv[2:])
+        assert first["resumed_from"] == 0 and len(first["losses"]) == 3
+        assert again["resumed_from"] == 3 and len(again["losses"]) == 1
+        assert not any(k == "jax" or k.startswith(("jax.", "repro.", "ml_dtypes")) for k in sys.modules
+                       if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_no_module_of_the_port_names_jax_or_the_reference():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
