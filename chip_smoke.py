@@ -15,8 +15,9 @@ Phases, in order, one line each:
                    blocks, at the path and S 4096
   3. flash         flash-attention kernel vs its plain version on the card, bf16
                    and f32, at the serve path's shape, zamba2's (H 32, KVH 32,
-                   D 64), olmoe's (H 16, KVH 16, D 128) and minicpm3's MLA
-                   prefill (H 40, q/k head dim 96, v head dim 64), ragged-offset
+                   D 64), olmoe's (H 16, KVH 16, D 128), minicpm3's MLA
+                   prefill (H 40, q/k head dim 96, v head dim 64) and
+                   glm4-9b's (H 32, KVH 2, D 128), ragged-offset
                    cases over strided cache slices, and 4096-token prefills at
                    qwen3-14b's, minicpm3's and zamba2's head shapes, and
                    whisper-small's non-causal shapes through the full entry
@@ -25,19 +26,48 @@ Phases, in order, one line each:
                    times (CUDA-graph replay) of kernel, plain version and SDPA
                    (yardstick only: the port never calls it)
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
-                   shape, zamba2's and olmoe's (kv_len 129..136, bf16 and f32), a batch
+                   shape, zamba2's, olmoe's and glm4-9b's (G 16; kv_len
+                   129..136, bf16 and f32), a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
                    one kv_len = 0 row, one 4096-token sequence, whisper-small's
                    decode cross-attention (kv_len 1500 over 94 pages); the paged-pool
                    staging check; times as above
   5. serve         full-width qwen3-14b through launch.serve_e2e.main: staged
                    workload -> ServingEngine -> CacheHierarchy -> 4-shard
-                   ShardedKVBlockStore on disk, real prefill and greedy decode;
-                   launch counters reset just before and read just after
+                   ShardedKVBlockStore on disk, real prefill and greedy decode,
+                   every prefill and decode step a captured CUDA graph
+                   (repro_torch.graphs.capture, all captured before the
+                   engine starts); hits exact per stage; launch counters
+                   reset just before and read just after: a replay runs no
+                   wrapper, so they count the captures' warm calls and the
+                   launches recorded into each graph (gated exact), and
+                   each step's replays are counted
   6. decode-check  the decoded tokens again through the plain attention versions
                    on the card (teacher-forced): token agreement and logit error;
-                   warm prefill and decode times of both paths; a torch.profiler
-                   pass over one prefill (device busy time, idle share)
+                   warm prefill and decode times of both paths (eager); a
+                   torch.profiler pass over one prefill (device busy time,
+                   idle share); then one `steps` line:
+     steps         (one line per family, printed by phases 6, 6b and 9-13)
+                   the main path's captured greedy decode against the same
+                   steps run eagerly through the kernels (tokens equal,
+                   max |dlogit| <= 1 % of max |logit|); eager and graph warm
+                   prefill ms and decode ms per token (host clock,
+                   synchronised, median of 5), the graphs' prefill and
+                   decode device ms (CUDA events), capture seconds and
+                   graph pool MB,
+                   device busy and idle share of one eager and one graph
+                   prefill under torch.profiler; and, from a device trace
+                   (torch.profiler) of one replay of every captured step
+                   the main path ran, the kernel launches per replay
+                   (gated exact, and equal to what the capture recorded),
+                   times that step's replays on the main path: the main
+                   path's launches on the card (flash 40 per prefill and
+                   paged decode 40 per token for qwen3-14b, gated exact)
+  6b. glm4         full-width glm4-9b (40 layers, d 4096, 32 heads, 2 KV
+                   heads) from seed 0 through launch.serve_e2e.main, the
+                   serve phase's workload and gates (flash 40 per prefill,
+                   paged decode 40 per token), then glm4-check: phase 6's
+                   checks and its steps line
   7. wkv           RWKV6 WKV kernel vs its chunked plain version on the card, f32
                    arithmetic: the rwkv6 path's shape (model layout, chunk 16,
                    the model's decay, so the log-decay clamp acts), a ragged S
@@ -98,7 +128,11 @@ Phases, in order, one line each:
                    --simulate-crash on the card in a subprocess
                    (deterministic algorithms), whose losses after the resume
                    must replay the uninterrupted run's
- 16. kernels       one JSON line describing the six kernels
+ 16. kernels       one JSON line describing the six kernels: `launches` is
+                   the wrappers' count over the main path's run (eager
+                   launches and launches recorded into graphs at capture),
+                   `replayed_launches` the launches the main path's graph
+                   replays ran on the card, from the device trace
 
 Every phase runs on every call.  Any failed phase raises and the exit code
 is nonzero.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -119,8 +153,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402  (H100 SXM, NVIDIA data sheet)
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
 ARCH = "qwen3-14b"
 SEED = 0
 # bf16: kernel and plain version both compute in f32 and round the result to
@@ -306,8 +340,9 @@ def phase_flash():
          library_ms=f"{time_ms(lambda: F.scaled_dot_product_attention(qzt, kzt, vzt, is_causal=True), 200):.5f}",
          bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
 
-    # olmoe-1b-7b and minicpm3-4b (MLA): their 128-token prompts
-    for label, Hm, KVHm, Dm, Dvm in (("olmoe", 16, 16, 128, 128), ("minicpm3", 40, 40, 96, 64)):
+    # olmoe-1b-7b, minicpm3-4b (MLA) and glm4-9b (G 16): their 128-token prompts
+    for label, Hm, KVHm, Dm, Dvm in (("olmoe", 16, 16, 128, 128), ("minicpm3", 40, 40, 96, 64),
+                                     ("glm4", 32, 2, 128, 128)):
         qm, km, vm = rand(B, S, Hm, Dm), rand(B, S, KVHm, Dm), rand(B, S, KVHm, Dvm)
         errm, sharem = assert_bf16(f"flash {label}", flash_attention(qm, km, vm, causal=True),
                                    flash_attention_plain(qm, km, vm, True, 0))
@@ -319,7 +354,8 @@ def phase_flash():
         rec[label] = {"shape": f"B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} causal bf16", "max_abs_err": errm,
                       "ms": time_ms(lambda: flash_attention(qm, km, vm, causal=True), 200),
                       "plain_ms": time_ms(lambda: flash_attention_plain(qm, km, vm, True, 0), 50),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qmt, kmt, vmt, is_causal=True), 200),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                          qmt, kmt, vmt, is_causal=True, enable_gqa=Hm != KVHm), 200),
                       "bound_ms": boundm[0], "bound_by": boundm[1]}
         line("flash", case=f"{label} B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} bf16", max_abs_err=f"{errm:.3e}",
              tol=BF16_LIMIT, of_limit=f"{sharem:.3f}", f32_err=f"{errm32:.3e}", f32_tol=F32_TOL,
@@ -477,9 +513,10 @@ def phase_paged_decode():
          library_ms=f"{rec['library_ms']:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
          bound_by=rec["bound_by"])
 
-    # zamba2's shared attention block (H 32, KVH 32, G 1, D 64) and olmoe's
-    # attention (H 16, KVH 16, G 1, D 128) at decode
-    for label, Hz, KVHz, Dz in (("zamba2", 32, 32, 64), ("olmoe", 16, 16, 128)):
+    # zamba2's shared attention block (H 32, KVH 32, G 1, D 64), olmoe's
+    # attention (H 16, KVH 16, G 1, D 128) and glm4-9b's (H 32, KVH 2: G 16
+    # query heads in one m16 tile) at decode
+    for label, Hz, KVHz, Dz in (("zamba2", 32, 32, 64), ("olmoe", 16, 16, 128), ("glm4", 32, 2, 128)):
         kpz, vpz = (rand(1, Smax, KVHz, Dz).view(NB, page, KVHz, Dz) for _ in range(2))
         qz = rand(1, Hz, Dz)
         errs = []
@@ -498,7 +535,8 @@ def phase_paged_decode():
         rec[label] = {"shape": f"B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len136 bf16", "max_abs_err": errz,
                       "ms": time_ms(lambda: paged_decode(qz, kpz, vpz, tables, lens), 200),
                       "plain_ms": time_ms(lambda: paged_decode_ref(qz, kpz, vpz, tables, lens), 50),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200),
+                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                                                   enable_gqa=Hz != KVHz), 200),
                       "bound_ms": boundz[0], "bound_by": boundz[1]}
         line("paged_decode", case=f"{label} B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len129..136 bf16",
              max_abs_err=f"{errz:.3e}", tol=BF16_LIMIT, of_limit=f"{sharez:.3f}", f32_err=f"{errz32:.3e}",
@@ -621,20 +659,28 @@ def phase_paged_decode():
     return rec
 
 
-def phase_serve(seed):
+def phase_serve(seed, arch=ARCH, phase="serve"):
+    """Full-width ``arch`` through ``launch.serve_e2e.main``: the staged
+    workload with its prefills through the hook's captured step, then 8
+    tokens through captured prefill and decode steps.  Gates: hits exact
+    per stage; the wrappers' launch counts exact for the steps captured
+    (each step's warm calls and its capture), and each step's replays
+    those of the run.  The launches the replays ran are read from a device
+    trace in phase steps (``steps_line``), from ``res["path_steps"]``."""
     import torch
 
     from repro_torch import kernels
+    from repro_torch.graphs import WARM_CALLS
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_e2e import main as serve_main
     from repro_torch.models import api
     from repro_torch.models.common import count_params, tree_leaves
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed, "cuda")
     torch.cuda.synchronize()
-    line("serve", init_params_s=f"{time.perf_counter() - t0:.2f}", params=count_params(params),
+    line(phase, arch=cfg.name, init_params_s=f"{time.perf_counter() - t0:.2f}", params=count_params(params),
          layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          weights_gb=f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f}")
@@ -642,29 +688,61 @@ def phase_serve(seed):
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve_main(arch=ARCH, device="cuda", seed=seed, params=params)
+    res = serve_main(arch=arch, device="cuda", seed=seed, params=params)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
 
     for st in res["stages"]:
-        line("serve", stage=st["stage"], expect_hit=st["expect_hit"], hit=f"{st['hit']:.4f}",
+        line(phase, stage=st["stage"], expect_hit=st["expect_hit"], hit=f"{st['hit']:.4f}",
              ttft_ms=f"{st['ttft_s'] * 1e3:.3f}", compute_ms=f"{st['compute_s'] * 1e3:.3f}",
              io_ms=f"{st['io_s'] * 1e3:.3f}")
-        if st["expect_hit"] > 0 and st["hit"] <= 0:
-            raise AssertionError(f"stage {st['stage']} expected hits but reused nothing")
-    want_flash = cfg.n_layers * res["prefills"]
-    want_decode = cfg.n_layers * res["decode_steps"]
-    if counts["flash"] != want_flash or counts["paged_decode"] != want_decode:
-        raise AssertionError(f"launch counts {counts}, expected flash {want_flash} "
-                             f"({cfg.n_layers} per prefill x {res['prefills']}) and paged_decode "
-                             f"{want_decode} ({cfg.n_layers} per token x {res['decode_steps']})")
+        if abs(st["hit"] - st["expect_hit"]) > 1e-9:
+            raise AssertionError(f"{phase}: stage {st['stage']} hit {st['hit']}, expected {st['expect_hit']} exactly")
+    res["path_steps"] = path_steps(cfg, params, res["prompt"], res["greedy_steps"], res["hook"])
+    captured = {"prefill": len(res["hook"].steps) + 1, "decode": 1}
+    want = expected_launches(cfg, (WARM_CALLS + 1) * captured["prefill"], (WARM_CALLS + 1) * captured["decode"])
+    replays = {kind: sum(r for _, k, _, r, _ in res["path_steps"] if k == kind) for kind in ("prefill", "decode")}
+    if counts != want:
+        raise AssertionError(f"{phase}: launch counts {counts}, expected {want} ({captured} steps captured, "
+                             f"each {WARM_CALLS} warm calls and one capture)")
+    if replays != {"prefill": res["prefills"], "decode": res["decode_steps"]}:
+        raise AssertionError(f"{phase}: replays {replays}, the run made {res['prefills']} prefills and "
+                             f"{res['decode_steps']} decode steps")
     if not bool(torch.isfinite(res["decode_logits"]).all()):
-        raise AssertionError("non-finite decode logits")
-    line("serve", wall_s=f"{wall:.2f}", prefills=res["prefills"], decoded=res["decoded"],
+        raise AssertionError(f"{phase}: non-finite decode logits")
+    line(phase, wall_s=f"{wall:.2f}", prefills=res["prefills"], decoded=res["decoded"],
          decode_s=f"{res['decode_s']:.3f}", launches=json.dumps(counts).replace(" ", ""),
+         steps_captured=json.dumps(captured).replace(" ", ""), replays=json.dumps(replays).replace(" ", ""),
          peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", store_bytes=res["store_bytes"])
     return cfg, params, res, counts
+
+
+def path_steps(cfg, params, prompt, steps, hook=None, frames=None):
+    """The captured steps a main path ran, read just after it: (label,
+    kind, step, replays on the path, a call that replays the step once
+    more on the path's inputs).  The hook's prefill steps (a serve run),
+    then ``greedy_decode``'s prefill and decode (``steps``)."""
+    import torch
+
+    from repro_torch.launch.serve_e2e import prefill_inputs
+
+    toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
+    inputs = prefill_inputs(cfg, toks, frames)
+    out = []
+    for n, st in sorted((hook.steps if hook is not None else {}).items()):
+        hook_toks = {"tokens": torch.zeros((1, n), dtype=torch.int64, device="cuda")}
+        out.append((f"hook_prefill_{n}", "prefill", st, st.replays,
+                    lambda st=st, t=hook_toks: st(params, t)))
+
+    def decode():
+        steps.pos.fill_(len(prompt))  # within the held cache's slots
+        steps.decode(params, toks[:, :1], steps.cache, steps.pos)
+
+    out.append(("prefill", "prefill", steps.prefill, steps.prefill.replays,
+                lambda: steps.prefill(params, inputs, steps.cache)))
+    out.append(("decode", "decode", steps.decode, steps.decode.replays, decode))
+    return out
 
 
 def _host_ms(fn, reps: int = 5) -> float:
@@ -683,8 +761,8 @@ def _host_ms(fn, reps: int = 5) -> float:
 
 def path_times(cfg, params, prompt, fed, frames=None):
     """Warm prefill ms of ``prompt`` and decode ms per token of ``fed``
-    (teacher-forced), on the kernel path and on the plain path (host clock,
-    synchronised), as printable strings.  An encdec model takes ``frames``;
+    (teacher-forced), on the kernel path and on the plain path, both eager
+    (host clock, synchronised), as printable strings.  An encdec model takes ``frames``;
     its encoder's time, a part of the prefill's, is printed beside it."""
     import torch
 
@@ -709,16 +787,18 @@ def path_times(cfg, params, prompt, fed, frames=None):
                     encdec.encode(params, cfg, frames, plain)
 
             timing[f"{label}_encode_ms"] = _host_ms(encode)
-        total = _host_ms(lambda: greedy_decode(cfg, params, prompt, len(fed), "cuda", plain, fed, frames))
+        total = _host_ms(lambda: greedy_decode(cfg, params, prompt, len(fed), "cuda", plain, fed, frames,
+                                               graphs=False))
         timing[f"{label}_decode_ms_per_token"] = (total - timing[f"{label}_prefill_ms"]) / len(fed)
     return {k: f"{v:.3f}" for k, v in timing.items()}
 
 
-def phase_decode_check(cfg, params, res):
+def phase_decode_check(cfg, params, res, phase="decode-check", table="profile_prefill.txt"):
     """Feed the serve run's decode inputs again (teacher forcing) through the
     kernel path and through the plain attention versions; compare logits
     and argmax tokens.  Also times, warm, one 128-token prefill and the
-    8-step decode on each path (host clock, synchronised)."""
+    8-step decode on each path (host clock, synchronised).  Returns the
+    launches the serve run's graph replays ran (``steps_line``)."""
     import torch
 
     from repro_torch.launch.serve_e2e import greedy_decode
@@ -729,15 +809,17 @@ def phase_decode_check(cfg, params, res):
     err = max_err(res["decode_logits"], plain_logits)
     scale = float(plain_logits.abs().max())
     agree = sum(a == b for a, b in zip(plain_tokens, res["decoded"])) / len(res["decoded"])
-    line("decode-check", kernel_tokens=res["decoded"], plain_tokens=plain_tokens, agreement=f"{agree:.3f}",
+    line(phase, kernel_tokens=res["decoded"], plain_tokens=plain_tokens, agreement=f"{agree:.3f}",
          logits_max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
          tol=f"{LOGIT_REL_TOL}*max|logit|={LOGIT_REL_TOL * scale:.4f}")
     if agree < MIN_TOKEN_AGREEMENT or err > LOGIT_REL_TOL * scale or not bool(torch.isfinite(plain_logits).all()):
-        raise AssertionError("decode-check: the kernel path and the plain path disagree")
+        raise AssertionError(f"{phase}: the kernel path and the plain path disagree")
 
     toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
-    line("decode-check", **path_times(cfg, params, prompt, fed))
-    profile_prefill(cfg, params, toks)
+    line(phase, **path_times(cfg, params, prompt, fed))
+    profile_prefill(cfg, params, toks, phase=phase, table=table)
+    return steps_line(cfg, params, prompt, res["decoded"], res["decode_logits"], res["greedy_steps"],
+                      res["path_steps"])
 
 
 def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "profile_prefill.txt", frames=None):
@@ -763,7 +845,8 @@ def profile_call(fn, phase: str, table: str, what: str):
     """torch.profiler over one call of ``fn``: device busy time (sum of
     kernel times, one stream) against the synchronised wall time, and the
     kernels that take it.  The table is written to the file ``table`` in
-    the output directory beside this script."""
+    the output directory beside this script.  Returns (wall ms, busy ms,
+    each kernel's launches in the trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -773,9 +856,12 @@ def profile_call(fn, phase: str, table: str, what: str):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    from repro_torch.kernels import traced_launch_counts
+
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    traced = traced_launch_counts((e.key, e.count) for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", table), "w") as f:
@@ -783,6 +869,140 @@ def profile_call(fn, phase: str, table: str, what: str):
     line(phase, what=what, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
          idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
          top=";".join(f"{e.key[:40]}:{e.self_device_time_total / 1e3:.3f}ms" for e in top))
+    return wall_ms, busy_ms, traced
+
+
+def traced_launches(fn):
+    """Each kernel's launches in a device trace (torch.profiler) of one
+    call of ``fn``: what a replayed CUDA graph ran, which no wrapper
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import traced_launch_counts
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return traced_launch_counts((e.key, e.count) for e in prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+STEPS_LOGIT_REL_TOL = 0.01  # graph vs eager kernel path: the same kernels on the same inputs
+
+
+def steps_line(cfg, params, prompt, graph_tokens, graph_logits, steps, path, frames=None, eager=None):
+    """Phase ``steps`` for one family: the main path's captured greedy
+    decode (``graph_tokens``, ``graph_logits``, run on the captured
+    ``steps``) against the same steps run eagerly through the kernels
+    (``eager``, run here when not given: a ``greedy_decode(...,
+    graphs=False)`` result), gated on equal tokens and max |dlogit| <=
+    STEPS_LOGIT_REL_TOL of max |logit|; then the main path's own captured
+    prefill and decode timed against the same steps made eager (host
+    clock, synchronised, median of 5; decode over a run of 8 steps), the
+    graphs' device times (CUDA events), their capture's seconds and pool,
+    one eager and one graph prefill under torch.profiler (idle share
+    against the profiled wall and against the unprofiled host time).
+    Last, one replay of every captured step the main path ran (``path``,
+    from ``path_steps``) under torch.profiler: its launches per replay,
+    gated exact and equal to what its capture recorded, times its replays
+    on the main path.  Returns those, the main path's launches on the
+    card, gated exact for the path's prefills and decode steps."""
+    import torch
+
+    from repro_torch.launch.serve_e2e import greedy_decode, make_greedy_steps, prefill_inputs
+
+    n = len(graph_tokens)
+    if eager is None:
+        eager = greedy_decode(cfg, params, prompt, n, "cuda", frames=frames, graphs=False)
+    eager_tokens, _, eager_logits = eager
+    gap, scale = max_err(graph_logits, eager_logits), float(eager_logits.abs().max())
+    failed = []
+    if eager_tokens != graph_tokens or gap > STEPS_LOGIT_REL_TOL * scale:
+        failed.append(f"graph tokens {graph_tokens} vs eager {eager_tokens}, logit gap {gap:.4e}")
+
+    toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
+    inputs = prefill_inputs(cfg, toks, frames)
+    tok = toks[:, :1]
+    made = make_greedy_steps(cfg, params, len(prompt), n, "cuda", frames=frames, graphs=False)
+    with torch.inference_mode():
+        for st in (made, steps):
+            st.pos.fill_(len(prompt))  # within the held caches' slots
+
+    def run(fn, *args, times=1):
+        def call():
+            with torch.inference_mode():
+                for _ in range(times):
+                    fn(*args)
+        return call
+
+    e_prefill, g_prefill = run(made.prefill, params, inputs, made.cache), run(steps.prefill, params, inputs, steps.cache)
+    e_decode = run(made.decode, params, tok, made.cache, made.pos, times=n)
+    g_decode = run(steps.decode, params, tok, steps.cache, steps.pos, times=n)
+    timing = {"eager_prefill_ms": _host_ms(e_prefill), "graph_prefill_ms": _host_ms(g_prefill),
+              "eager_decode_ms_per_token": _host_ms(e_decode) / n,
+              "graph_decode_ms_per_token": _host_ms(g_decode) / n}
+
+    def device_ms(call):  # CUDA events around the replays: the graph's time on the card, median of 5
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    timing["graph_prefill_device_ms"] = device_ms(g_prefill)
+    timing["graph_decode_device_ms_per_token"] = device_ms(g_decode) / n
+    name = cfg.name.split("-")[0]
+    prof = {label: profile_call(fn, "steps", f"profile_steps_{name}_{label}.txt",
+                                f"{cfg.name}: one warm {len(prompt)}-token prefill, {label}, under torch.profiler")
+            for label, fn in (("eager", e_prefill), ("graph", g_prefill))}
+
+    per_replay, replayed, ran = {}, dict.fromkeys(KERNELS, 0), {"prefill": 0, "decode": 0}
+    for label, kind, step, replays, call in path:
+        traced = traced_launches(run(call))
+        want = expected_launches(cfg, 1, 0) if kind == "prefill" else expected_launches(cfg, 0, 1)
+        if traced != want or traced != step.launches:
+            failed.append(f"{label}: launches per replay {_nonzero(traced)} in the trace, captured "
+                          f"{_nonzero(step.launches)}, want {_nonzero(want)}")
+        per_replay[label] = traced
+        ran[kind] += replays
+        for k in replayed:
+            replayed[k] += traced[k] * replays
+    want_path = expected_launches(cfg, ran["prefill"], ran["decode"])
+    if replayed != want_path:
+        failed.append(f"the main path's replays ran {_nonzero(replayed)}, want {_nonzero(want_path)} "
+                      f"({ran['prefill']} prefills, {ran['decode']} decode steps)")
+    steps_p, steps_d = steps.prefill, steps.decode
+    line("steps", arch=cfg.name, tokens_equal=eager_tokens == graph_tokens, logit_gap=f"{gap:.4e}",
+         max_abs_logit=f"{scale:.4f}", tol=f"{STEPS_LOGIT_REL_TOL}*max|logit|={STEPS_LOGIT_REL_TOL * scale:.4f}",
+         **{k: f"{v:.3f}" for k, v in timing.items()},
+         prefill_capture_s=f"{steps_p.capture_s:.3f}", decode_capture_s=f"{steps_d.capture_s:.3f}",
+         prefill_pool_mb=f"{steps_p.pool_bytes / 1e6:.1f}", decode_pool_mb=f"{steps_d.pool_bytes / 1e6:.1f}",
+         eager_busy_ms=f"{prof['eager'][1]:.3f}", eager_idle_share=f"{max(0.0, 1 - prof['eager'][1] / prof['eager'][0]):.3f}",
+         graph_busy_ms=f"{prof['graph'][1]:.3f}", graph_idle_share=f"{max(0.0, 1 - prof['graph'][1] / prof['graph'][0]):.3f}",
+         # busy against the unprofiled host times above: the profiler's own
+         # overhead stretches the wall of a 20 ms graph by ~10 ms
+         eager_idle_share_unprofiled=f"{max(0.0, 1 - prof['eager'][1] / timing['eager_prefill_ms']):.3f}",
+         graph_idle_share_unprofiled=f"{max(0.0, 1 - prof['graph'][1] / timing['graph_prefill_ms']):.3f}",
+         prefill_launches=_nonzero(per_replay["prefill"]), decode_launches=_nonzero(per_replay["decode"]),
+         traced_per_replay=json.dumps({k: {n_: v for n_, v in c.items() if v} for k, c in per_replay.items()})
+         .replace(" ", ""),
+         replays=json.dumps({label: r for label, _, _, r, _ in path}).replace(" ", ""),
+         path_replayed_launches=_nonzero(replayed))
+    del made
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"steps {cfg.name}: " + "; ".join(failed))
+    return replayed
+
+
+def _nonzero(counts):
+    return json.dumps({k: v for k, v in counts.items() if v}).replace(" ", "")
 
 
 # ------------------------------------------------------- recurrent scans
@@ -1146,15 +1366,18 @@ def latent_slab(cfg, params, toks):
 def phase_model(phase: str, seed: int, capture=None):
     """A full-width model from ``seed``: greedy decode through the kernels,
     held against the plain versions (in bf16 and on an f32 copy of the
-    weights); chaining of prefills; timings; a profile.  Returns the launch
-    counts of the kernel-path run and what ``capture(cfg, params, toks)``
-    returns while the weights are on the card."""
+    weights); chaining of prefills; timings; a profile.  Returns the
+    wrappers' launch counts of the kernel-path run (captures included),
+    the launches its graph replays ran on the card (phase steps), and what
+    ``capture(cfg, params, toks)`` returns while the weights are on the
+    card."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve_e2e import greedy_decode
+    from repro_torch.graphs import WARM_CALLS
+    from repro_torch.launch.serve_e2e import greedy_decode, make_greedy_steps
     from repro_torch.models import api
     from repro_torch.models.common import count_params, tree_leaves
 
@@ -1172,16 +1395,29 @@ def phase_model(phase: str, seed: int, capture=None):
         frames = torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (1, cfg.enc_frames, cfg.d_model), dtype=np.float32)).to("cuda", torch.bfloat16)
 
-    routing = RoutingRecorder() if moe else contextlib.nullcontext()
     kernels.reset_launch_counts()
-    with routing:
-        tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", frames=frames)
+    steps = make_greedy_steps(cfg, params, PROMPT, DECODE, "cuda", frames=frames)  # captured
+    tokens, fed, logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", frames=frames, steps=steps)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = expected_launches(cfg, 1, DECODE)
-    line(phase, kernel_tokens=tokens, launches=json.dumps(counts).replace(" ", ""))
+    path = path_steps(cfg, params, prompt, steps, frames=frames)
+    # the same steps eagerly through the kernels, for phase steps; an moe
+    # model's routing is recorded here (a replay runs no Python to record)
+    routing = RoutingRecorder() if moe else contextlib.nullcontext()
+    with routing:
+        eager = greedy_decode(cfg, params, prompt, DECODE, "cuda", frames=frames, graphs=False)
+    # a replay runs no wrapper: the counts are the two captured steps' warm
+    # calls and captures; what the replays ran is read from a device trace
+    # in phase steps
+    want = expected_launches(cfg, WARM_CALLS + 1, WARM_CALLS + 1)
+    replays = {label: r for label, _, _, r, _ in path}
+    line(phase, kernel_tokens=tokens, launches=json.dumps(counts).replace(" ", ""),
+         replays=json.dumps(replays).replace(" ", ""))
     if counts != want:
-        raise AssertionError(f"{phase}: launch counts {counts}, expected {want} (1 prefill, {DECODE} tokens)")
+        raise AssertionError(f"{phase}: launch counts {counts}, expected {want} (a prefill and a decode step "
+                             f"captured, each {WARM_CALLS} warm calls and one capture)")
+    if replays != {"prefill": 1, "decode": DECODE}:
+        raise AssertionError(f"{phase}: replays {replays}, expected 1 prefill and {DECODE} decode steps")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{phase}: non-finite decode logits")
 
@@ -1249,10 +1485,11 @@ def phase_model(phase: str, seed: int, capture=None):
 
     line(phase, **path_times(cfg, params, prompt, fed, frames))
     profile_prefill(cfg, params, toks, phase=phase, table=f"profile_prefill_{phase}.txt", frames=frames)
+    replayed = steps_line(cfg, params, prompt, tokens, logits, steps, path, frames, eager)
     captured = capture(cfg, params, toks) if capture is not None else None
-    del params
+    del params, steps, path
     torch.cuda.empty_cache()
-    return counts, captured
+    return counts, replayed, captured
 
 
 # ------------------------------------------------------------ int8 codec
@@ -1788,12 +2025,13 @@ def phase_train():
     torch.cuda.empty_cache()
 
 
-def kernels_line(recs, counts):
+def kernels_line(recs, counts, replayed):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main path that runs it: the qwen3-14b serve for flash and
     paged_decode, the codec's entry points over the serve blocks and the
     latent slab for quantize and dequantize, rwkv6-1.6b for wkv,
-    zamba2-1.2b for ssd."""
+    zamba2-1.2b for ssd.  ``replayed`` maps each kernel to the launches
+    the same path's CUDA-graph replays ran, read from device traces."""
     entries = []
     for name, src, rep, tol in (
         ("flash", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1812,12 +2050,17 @@ def kernels_line(recs, counts):
         rec = recs[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[name], "max_abs_err": rec["max_abs_err"], "tol": tol,
+            "launches": counts[name], "replayed_launches": replayed[name],
+            "launches_from": "the wrapper's counter over the main path's run: eager launches, and launches "
+                             "recorded into CUDA graphs at capture (a replay runs no wrapper)",
+            "replayed_launches_from": "torch.profiler trace of one replay of each captured step of the main "
+                                      "path, times that step's replays on the path",
+            "max_abs_err": rec["max_abs_err"], "tol": tol,
             "ms": rec["ms"], "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
             "large": rec["large"],
         }
-        for extra in ("olmoe", "minicpm3", "zamba2", "slab", "large_minicpm3", "large_zamba2", "large_one",
+        for extra in ("olmoe", "minicpm3", "zamba2", "glm4", "slab", "large_minicpm3", "large_zamba2", "large_one",
                       "whisper_encoder", "whisper_cross"):
             if extra in rec:
                 entry[extra] = rec[extra]
@@ -1836,7 +2079,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails when the repository is not beside this file)
-    from repro_torch.serving.real_prefill import make_real_prefill
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1846,23 +2088,30 @@ def main() -> int:
     wkv = phase_wkv()
     ssd = phase_ssd()
     cfg, params, res, counts = phase_serve(SEED)
-    phase_decode_check(cfg, params, res)
+    serve_replayed = phase_decode_check(cfg, params, res)
     # the KV blocks one 128-token prefill hands to the store, for the codec
-    serve_blocks, _ = make_real_prefill(cfg, params, 16, "cuda")(res["prompt"], 0)
-    del params
+    serve_blocks, _ = res["hook"](res["prompt"], 0)
+    del params, res  # the steps hold the weights
     torch.cuda.empty_cache()
-    rwkv6_counts, _ = phase_model("rwkv6", SEED)
-    zamba2_counts, _ = phase_model("zamba2", SEED)
+    glm_cfg, glm_params, glm_res, _ = phase_serve(SEED, "glm4-9b", phase="glm4")
+    phase_decode_check(glm_cfg, glm_params, glm_res, phase="glm4-check", table="profile_prefill_glm4.txt")
+    del glm_params, glm_res
+    torch.cuda.empty_cache()
+    rwkv6_counts, rwkv6_replayed, _ = phase_model("rwkv6", SEED)
+    zamba2_counts, zamba2_replayed, _ = phase_model("zamba2", SEED)
     phase_model("olmoe", SEED)
-    _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
+    _, _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
     phase_model("whisper", SEED)
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
     phase_train()
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}
+    replayed = {"flash": serve_replayed["flash"], "paged_decode": serve_replayed["paged_decode"],
+                "quantize": 0, "dequantize": 0,  # the codec's entry points run eagerly
+                "wkv": rwkv6_replayed["wkv"], "ssd": zamba2_replayed["ssd"]}
     recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd}
-    print(json.dumps(kernels_line(recs, path_counts)), flush=True)
+    print(json.dumps(kernels_line(recs, path_counts, replayed)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.1f} card={smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

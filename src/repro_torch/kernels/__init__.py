@@ -7,7 +7,8 @@ wrappers share (device rule, binding, the launch call)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Iterable, Tuple
 
 from .decode_attention import ops as _decode_ops
 from .flash_attention import ops as _flash_ops
@@ -25,6 +26,19 @@ _COUNTED = {
     "dequantize": (_codec_ops, "dequantize_launches"),
 }
 
+# kernel name -> the __global__ functions of its source of which each
+# launch of the wrapper runs exactly one.  A replayed CUDA graph runs no
+# wrapper: a device trace counts its launches by these names.
+TRACE_SYMBOLS = {
+    "flash": ("flash_bf16_kernel", "flash_fwd_kernel"),
+    "paged_decode": ("paged_decode_mma_kernel", "paged_decode_split_kernel"),
+    "wkv": ("wkv_chunk_kernel",),
+    "ssd": ("ssd_local_kernel",),
+    "quantize": ("quantize_one_pass_kernel", "quantize_absmax_kernel"),
+    "dequantize": ("dequantize_kernel",),
+}
+_SYMBOL = {kernel: re.compile(r"\b(" + "|".join(symbols) + r")\b") for kernel, symbols in TRACE_SYMBOLS.items()}
+
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
@@ -34,3 +48,16 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTED.values():
         setattr(mod, attr, 0)
+
+
+def traced_launch_counts(kernel_runs: Iterable[Tuple[str, int]]) -> Dict[str, int]:
+    """Wrapper launches in a device trace.  ``kernel_runs`` are (device
+    kernel name, times it ran) pairs, as torch.profiler's
+    ``key_averages()`` gives them (``e.key``, ``e.count``); each kernel's
+    launches are the runs of its ``TRACE_SYMBOLS``."""
+    counts = dict.fromkeys(TRACE_SYMBOLS, 0)
+    for name, n in kernel_runs:
+        for kernel, pattern in _SYMBOL.items():
+            if pattern.search(name):
+                counts[kernel] += n
+    return counts

@@ -7,7 +7,9 @@ through the full stack —
                     -> CacheHierarchy (radix + tiers; plan/fetch/fulfill)
                     -> ShardedKVBlockStore (4 LSM shards on real disk)
                     -> real prefill and greedy decode on the device, through
-                       the flash and paged decode kernels
+                       the flash and paged decode kernels, each step
+                       captured as a CUDA graph (repro_torch.graphs.capture)
+                       before the engine starts
 
 The workload is the reference's ``examples/serve_e2e.py`` unchanged.  KV
 blocks written to and promoted from the disk tier are the model's actual
@@ -19,23 +21,27 @@ cache tensors; TTFT is measured (real compute + real I/O).
 
 from __future__ import annotations
 
+import dataclasses
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..cache.hierarchy import CacheHierarchy
 from ..configs import get_config
+from ..configs.base import ShapeConfig
 from ..core.sharded_store import ShardedKVBlockStore
+from ..graphs import capture
 from ..models import api
 from ..models.common import resolve_device
 from ..runtime import RuntimeServices
 from ..serving import ComputeModel, ServingEngine
 from ..serving.real_prefill import make_real_prefill
 from ..workload import StagedWorkload
+from .steps import build_decode_step
 
 BLOCK = 16
 PROMPT = 128
@@ -53,34 +59,90 @@ def prefill_inputs(cfg, toks, frames=None) -> Dict:
     return {"tokens": toks, "frames": frames}
 
 
+@dataclasses.dataclass
+class GreedySteps:
+    """The prefill and decode steps of ``greedy_decode`` for one prompt
+    length and token count, with the cache and the position they hold."""
+    prefill: Callable  # (params, batch, cache) -> last-token logits (1, V)
+    decode: Callable  # (params, tokens (1, 1), cache, pos) -> (logits (1, V), cache)
+    cache: Dict
+    pos: torch.Tensor  # 0-d int32 on the device
+    prompt_len: int
+    n_tokens: int
+
+
+def make_greedy_steps(cfg, params, prompt_len: int, n_tokens: int, device, plain_kernels: bool = False,
+                      frames=None, graphs: bool = True) -> GreedySteps:
+    """``greedy_decode``'s steps: a held cache of prompt_len + n_tokens
+    slots, the prefill at 0 into it and one decode step at a device
+    ``pos``.  On a CUDA device both are captured as CUDA graphs
+    (``repro_torch.graphs.capture``), as the reference example jits
+    ``api.prefill_fn`` and ``api.decode_fn``; ``graphs=False`` keeps the
+    steps eager through the kernels, ``plain_kernels`` eager through their
+    plain versions.  An encdec model takes example ``frames`` (1,
+    enc_frames, d_model), whose shape and dtype a captured prefill
+    keeps."""
+    dev = torch.device(device)
+    shape = ShapeConfig("greedy_decode", prompt_len + n_tokens, 1, "decode")
+    pfn = api.prefill_fn(cfg, plain_kernels)
+    decode = build_decode_step(cfg, shape, plain_kernels)
+
+    def prefill(params, batch, cache):
+        return pfn(params, batch, cache, 0)[0][:, -1, :]
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, 1, shape.seq_len, dev)
+        pos = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
+        if graphs and not plain_kernels:
+            toks = torch.zeros((1, prompt_len), dtype=torch.int64, device=dev)
+            batch = prefill_inputs(cfg, toks, None if frames is None else torch.zeros_like(frames))
+            prefill = capture(prefill, params, batch, cache, held=(0, 2))
+            decode = capture(decode, params, toks[:, :1], cache, pos, held=(0, 2))
+    return GreedySteps(prefill, decode, cache, pos, prompt_len, n_tokens)
+
+
 def greedy_decode(cfg, params, prompt: List[int], n_tokens: int, device,
-                  plain_kernels: bool = False, inputs: Optional[List[int]] = None, frames=None):
+                  plain_kernels: bool = False, inputs: Optional[List[int]] = None, frames=None,
+                  graphs: bool = True, steps: Optional[GreedySteps] = None):
     """Prefill ``prompt`` and decode ``n_tokens`` greedily.  With ``inputs``,
     step i is fed ``inputs[i]`` instead of the previous argmax (teacher
     forcing).  An encdec model takes ``frames`` (1, enc_frames, d_model),
     the encoder's input.  Returns (argmax tokens, the tokens fed, per-step
-    logits (n_tokens, V) as float32 on the device)."""
-    prefill = api.prefill_fn(cfg, plain_kernels)
-    decode = api.decode_fn(cfg, plain_kernels)
+    logits (n_tokens, V) as float32 on the device).
+
+    The steps are ``steps`` (from ``make_greedy_steps``, built once and
+    reused: a captured step is set up once) or made here with
+    ``plain_kernels`` and ``graphs``.  The held cache is zeroed and
+    ``pos`` set to the prompt's length; the loop advances ``pos`` in place
+    and feeds each argmax back on the device, so the host waits once, for
+    the final tokens."""
+    if steps is None:
+        steps = make_greedy_steps(cfg, params, len(prompt), n_tokens, device, plain_kernels, frames, graphs)
+    if (steps.prompt_len, steps.n_tokens) != (len(prompt), n_tokens):
+        raise ValueError(f"steps for a {steps.prompt_len}-token prompt and {steps.n_tokens} tokens, "
+                         f"asked for {len(prompt)} and {n_tokens}")
+    cache, pos = steps.cache, steps.pos
     with torch.inference_mode():
+        for t in cache.values():  # a fresh state: the last run (or a capture's warm calls) left its own
+            t.zero_()
+        pos.fill_(len(prompt))
         toks = torch.tensor(prompt, dtype=torch.int64, device=device)[None, :]
-        cache = api.init_cache(cfg, 1, len(prompt) + n_tokens, device)
-        logits, cache = prefill(params, prefill_inputs(cfg, toks, frames), cache, 0)
-        last = logits[:, -1:].argmax(-1)
+        last = steps.prefill(params, prefill_inputs(cfg, toks, frames), cache).argmax(-1, keepdim=True)
         if inputs is not None:
             fed = torch.tensor(inputs, dtype=torch.int64, device=device)[:, None, None]
-        out, fed_tokens, steps = [], [], []
+        out, fed_tokens, logit_rows = [], [], []
         for i in range(n_tokens):
             if inputs is not None:
                 last = fed[i]
             fed_tokens.append(last)
-            logits, cache = decode(params, last, cache, len(prompt) + i)
-            steps.append(logits[0, -1].float())
-            last = logits[:, -1:].argmax(-1)
+            logits, _ = steps.decode(params, last, cache, pos)
+            logit_rows.append(logits[0].to(torch.float32, copy=True))  # a graph's output is overwritten next call
+            last = logits.argmax(-1, keepdim=True)
             out.append(last)
+            pos += 1
         tokens = torch.cat(out).flatten().tolist()
         fed_list = torch.cat(fed_tokens).flatten().tolist()
-    return tokens, fed_list, torch.stack(steps)
+    return tokens, fed_list, torch.stack(logit_rows)
 
 
 def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int = 0,
@@ -88,16 +150,19 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
          verbose: bool = True) -> Dict:
     """Serve the staged workload and decode a few tokens.  ``params`` reuses
     weights already on the device (else they are drawn from ``seed``).
-    Returns per-stage hit and TTFT, every request's reuse, the decoded
-    tokens with their inputs and logits, and the number of prefills the
-    run made."""
+    Every step is captured before the engine starts: the hook's prefill
+    and the decode's steps.  Returns per-stage hit and TTFT, every
+    request's reuse, the decoded tokens with their inputs and logits, the
+    number of prefills the run made, and the steps (``hook``: the
+    engine's hook, ``greedy_steps``: the decode's)."""
     dev = resolve_device(device)
     say = print if verbose else (lambda *a, **k: None)
     cfg = get_config(arch, smoke=smoke)
     if params is None:
         params = api.init_params(cfg, seed, dev)
     kv_per_tok_elems = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head
-    hook = make_real_prefill(cfg, params, BLOCK, dev)
+    hook = make_real_prefill(cfg, params, BLOCK, dev, lengths=(PROMPT,))
+    greedy_steps = make_greedy_steps(cfg, params, PROMPT, DECODE_TOKENS, dev)
 
     root = tempfile.mkdtemp(prefix="serve_e2e_")
     runtime = RuntimeServices(io_threads=4)
@@ -135,7 +200,8 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
 
         # a short decode to show the serve path end to end
         t0 = time.perf_counter()
-        out, fed, logits = greedy_decode(cfg, params, wl.corpus[0][:PROMPT], DECODE_TOKENS, dev)
+        out, fed, logits = greedy_decode(cfg, params, wl.corpus[0][:PROMPT], DECODE_TOKENS, dev,
+                                         steps=greedy_steps)
         decode_s = time.perf_counter() - t0
         say(f"decoded {DECODE_TOKENS} tokens: {out}")
         say(f"store: shards={store.n_shards} files/shard={store.shard_file_counts()} "
@@ -153,7 +219,7 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
             "decode_s": decode_s, "prompt": wl.corpus[0][:PROMPT],
             # the engine's prefills plus the one in front of the decode
             "prefills": hook.calls + 1, "decode_steps": DECODE_TOKENS,
-            "store_bytes": store.disk_bytes,
+            "store_bytes": store.disk_bytes, "hook": hook, "greedy_steps": greedy_steps,
         }
     finally:
         eng.close()

@@ -7,6 +7,11 @@ GQA or MLA attention, moe, rwkv6, hybrid, encdec):
   prefill_fn(cfg)(params, inputs, cache, pos)    -> (logits, cache)
   decode_fn(cfg)(params, tokens, cache, pos)     -> (logits (B,1,V), cache)
 
+A decode step's ``pos`` is an int or a 0-d integer tensor on the model's
+device (the reference's traced scalar): with a tensor the step reads no
+host value, so a captured CUDA graph (``repro_torch.graphs.capture``) replays
+it at whatever position the tensor holds.  Prefill takes an int.
+
 ``key`` is an int seed or a ``torch.Generator`` whose ``initial_seed()`` is
 used.  ``device`` defaults to ``cuda``; the CPU runs only when asked for.
 ``plain_kernels=True`` runs every kernel's plain PyTorch version instead of
@@ -70,7 +75,8 @@ def prefill_fn(cfg: ModelConfig, plain_kernels: bool = False):
 
 
 def decode_fn(cfg: ModelConfig, plain_kernels: bool = False):
-    """(params, tokens (B,1), cache, pos) -> (logits (B,1,V), cache)."""
+    """(params, tokens (B,1), cache, pos) -> (logits (B,1,V), cache); ``pos``
+    an int or a 0-d integer tensor on the model's device."""
     transformer.require_ported(cfg)
     if cfg.family == "encdec":
 

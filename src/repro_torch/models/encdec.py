@@ -22,7 +22,7 @@ import torch
 from .common import Spec, tree_init
 from .layers import (F32, decode_over_cache, attend, build_gqa_template, build_mlp_template, decode_index,
                      gqa_attention, rms_norm, swiglu_mlp)
-from .transformer import cache_len, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack
+from .transformer import cache_len, check_pos, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack
 
 
 # ------------------------------------------------------------- templates
@@ -149,8 +149,11 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
     With a cache, updated in place at offset ``pos``: given ``memory``
     (prefill), the cross K/V are built from it and written into the cross
     cache, whose length must then be enc_frames; without it (decode), the
-    cross cache is read, by the paged decode kernel when S == 1."""
+    cross cache is read, by the paged decode kernel when S == 1.  A decode
+    step's ``pos`` may be a 0-d integer tensor on the model's device
+    (``transformer.lm_forward``)."""
     B, S = tokens.shape
+    check_pos(pos, S, cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)

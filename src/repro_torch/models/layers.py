@@ -84,17 +84,33 @@ def build_gqa_template(cfg) -> Dict:
     return t
 
 
-def decode_index(B: int, S_max: int, kv_len: int, device):
+def decode_index(B: int, S_max: int, kv_len, device):
     """Block tables and kv_len of a decode step over the dense cache viewed
     as PAGE-token pages: sequence b owns pages [b*NB, (b+1)*NB).  The same
-    for every layer, so a forward builds them once."""
+    for every layer, so a forward builds them once.  ``kv_len`` is an int
+    or a 0-d integer tensor on ``device``; a tensor is broadcast on the
+    device, so no host value enters the step (a CUDA graph replays it)."""
     if S_max % PAGE:
         raise ValueError(f"decode needs a cache length that is a multiple of {PAGE} "
                          f"(models.transformer.init_cache rounds it up), got {S_max}")
     NB = S_max // PAGE
     tables = torch.arange(B * NB, dtype=torch.int32, device=device).view(B, NB)
-    lens = torch.full((B,), kv_len, dtype=torch.int32, device=device)
+    if isinstance(kv_len, torch.Tensor):
+        lens = kv_len.to(torch.int32).reshape(1).expand(B).contiguous()
+    else:
+        lens = torch.full((B,), kv_len, dtype=torch.int32, device=device)
     return tables, lens
+
+
+def write_cache(buf, new, pos) -> None:
+    """buf (B, S_max, ...) <- new (B, S, ...) at slots [pos, pos + S), in
+    place.  ``pos`` is an int, or a 0-d integer tensor on buf's device
+    (written with ``index_copy_``, so the slot is read on the device: the
+    reference's ``dynamic_update_slice`` at a traced pos)."""
+    if isinstance(pos, torch.Tensor):
+        buf.index_copy_(1, pos + torch.arange(new.shape[1], device=buf.device), new)
+    else:
+        buf[:, pos:pos + new.shape[1]] = new
 
 
 def attend(q, k, v, causal: bool, q_offset: int, plain: bool):
@@ -127,10 +143,11 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     ``cache=None``: self-attention over x only (training) -> (out, None).
     ``cache=(ck, cv, pos)``: ck/cv are (B, S_max, KVH, Dh); this call's K/V
     are written at offset ``pos`` and attention runs over the first
-    ``pos+S`` slots -> (out, (ck, cv)).  Prefill (S > 1) runs the flash
-    kernel over the cache slice, decode (S == 1) the paged decode kernel
-    with ``index`` = ``decode_index(B, S_max, pos + 1)`` (built here when
-    the caller passes none)."""
+    ``pos+S`` slots -> (out, (ck, cv)).  Prefill (S > 1, ``pos`` an int)
+    runs the flash kernel over the cache slice, decode (S == 1, ``pos`` an
+    int or a 0-d tensor) the paged decode kernel with ``index`` =
+    ``decode_index(B, S_max, pos + 1)`` (built here when the caller passes
+    none)."""
     B, S, D = x.shape
     H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = torch.matmul(x, p["wq"])
@@ -157,8 +174,8 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         ck, cv, pos = cache
         # written in place: the caller's cache tensors are updated (the
         # reference returns updated copies; the port saves the copy)
-        ck[:, pos:pos + S] = k
-        cv[:, pos:pos + S] = v
+        write_cache(ck, k, pos)
+        write_cache(cv, v, pos)
         if S == 1:  # kv_len = pos + 1 masks exactly what causality would
             if index is None:
                 index = decode_index(B, ck.shape[1], pos + 1, x.device)
@@ -208,19 +225,21 @@ def mla_queries(p, cfg, x, positions):
     return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
 
-def _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope):
-    """One query token against the first T latent slots, in f32 in latent
+def _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, kv_len):
+    """One query token against the latent slots (B, T, ·), in f32 in latent
     space: q_nope is taken through wk_b, the output back through wv_b, so
-    per-head K/V are never formed (reference ``layers.py:295-309``).  The
-    caller passes exactly the visible slots, which is what the reference's
-    kv_len and causal mask keep."""
+    per-head K/V are never formed (reference ``layers.py:276-301``).  Slots
+    at or past ``kv_len`` (an int or a 0-d tensor: the query's position
+    + 1) are masked, as the reference's kv_len and causal mask do."""
     B, S, H, dn = q_nope.shape
     r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.v_head_dim
     wk = p["wk_b"].reshape(r, H, dn).to(F32)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(F32), wk)
     scores = torch.einsum("bshr,btr->bhst", q_lat, c_kv.to(F32))
     scores = scores + torch.einsum("bshd,btd->bhst", q_rope.to(F32), k_rope.to(F32))
-    pr = torch.softmax(scores / ((dn + dr) ** 0.5), dim=-1)
+    scores = scores / ((dn + dr) ** 0.5)
+    hidden = torch.arange(c_kv.shape[1], device=c_kv.device) >= kv_len
+    pr = torch.softmax(scores.masked_fill(hidden, -1e30), dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", pr, c_kv.to(F32))
     wv = p["wv_b"].reshape(r, H, dv).to(F32)
     return torch.einsum("bshr,rhd->bshd", o_lat, wv)
@@ -235,7 +254,9 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     written at offset ``pos``, in place, and attention runs over the first
     ``pos+S`` slots -> (out, (c, kr)).  S > 1 (and training) expands the
     latent to per-head K/V and runs the flash kernel at q/k head dim
-    dn+dr, v head dim dv; S == 1 with a cache takes the absorbed path."""
+    dn+dr, v head dim dv; S == 1 with a cache takes the absorbed path over
+    every S_max slot with kv_len = pos + 1 masking the rest, as the
+    reference does, so ``pos`` may there be a 0-d tensor."""
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
@@ -245,13 +266,15 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         c_kv, k_rope, new_cache, pos = c_new, kr_new, None, q_offset
     else:
         c_all, kr_all, pos = cache
-        c_all[:, pos:pos + S] = c_new
-        kr_all[:, pos:pos + S] = kr_new
-        c_kv, k_rope, new_cache = c_all[:, :pos + S], kr_all[:, :pos + S], (c_all, kr_all)
+        write_cache(c_all, c_new, pos)
+        write_cache(kr_all, kr_new, pos)
+        new_cache = (c_all, kr_all)
 
     if cache is not None and S == 1:
-        out = _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope).to(x.dtype)
+        out = _mla_absorbed(p, cfg, q_nope, q_rope, c_all, kr_all, pos + 1).to(x.dtype)
     else:
+        if cache is not None:
+            c_kv, k_rope = c_all[:, :pos + S], kr_all[:, :pos + S]
         T = c_kv.shape[1]
         k_nope = torch.matmul(c_kv, p["wk_b"]).reshape(B, T, H, dn)
         v = torch.matmul(c_kv, p["wv_b"]).reshape(B, T, H, dv)

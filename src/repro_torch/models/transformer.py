@@ -161,6 +161,15 @@ def checkpointed(block, remat: bool):
     return functools.partial(torch.utils.checkpoint.checkpoint, block, use_reentrant=False)
 
 
+def check_pos(pos, S: int, cache) -> None:
+    """A tensor ``pos`` is for a single-token decode over a cache: prefill
+    slices the cache and offsets flash at ``pos``, which must be known on
+    the host (the reference prefills at a static 0 as well)."""
+    if isinstance(pos, torch.Tensor) and (S != 1 or cache is None or pos.dim() != 0):
+        raise ValueError("a tensor pos must be 0-d and is taken by decode (S == 1 with a cache) only; "
+                         f"got S={S}, cache={'none' if cache is None else 'given'}, pos shape {tuple(pos.shape)}")
+
+
 def _store(cache, i: int, **states) -> None:
     """Write layer ``i``'s new states into the cache, in place."""
     for name, t in states.items():
@@ -170,14 +179,17 @@ def _store(cache, i: int, **states) -> None:
 def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
                plain_kernels: bool = False):
     """tokens (B,S) int.  ``cache=None`` => training forward.  Otherwise the
-    cache is consumed and updated in place at offset ``pos`` (an int).
-    ``plain_kernels`` runs every kernel's plain version instead of the
+    cache is consumed and updated in place at offset ``pos``: an int, or
+    for a decode step (S == 1) also a 0-d integer tensor on the model's
+    device, which a captured step (``repro_torch.graphs.capture``) reads anew on
+    every replay.  ``plain_kernels`` runs every kernel's plain version instead of the
     kernel.  Returns (logits (B,S,V), cache, aux); aux["aux_loss"] is an
     f32 scalar tensor, the sum over moe layers of the reference's
     mean-prob balance proxy n_experts·Σ me², me = probs.mean(0) (zero for
     the other families).  MoE runs dropless whenever a cache is passed."""
     require_ported(cfg)
     B, S = tokens.shape
+    check_pos(pos, S, cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)

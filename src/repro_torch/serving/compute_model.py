@@ -10,7 +10,8 @@ The paper's TTFT has two components, accounted separately:
 
 ``calibrate_host_flops`` grounds the model in a measurement: it times the
 port's own prefill on the chosen device (the card unless the caller asks
-for the CPU) and returns the achieved FLOP/s.
+for the CPU), captured as a CUDA graph on the card as the reference times
+a jitted one, and returns the achieved FLOP/s.
 
 The model covers segmented prefill: sequences longer than ``segment``
 tokens prefill in chunks with per-segment scheduling overhead, matching the
@@ -69,30 +70,33 @@ def _sync(device) -> None:
 def calibrate_host_flops(smoke_cfg, n_tokens: int = 256, iters: int = 2, device="cuda",
                          seed: int = 0) -> float:
     """Achieved FLOP/s of a real prefill of ``smoke_cfg`` on ``device``:
-    one warm-up prefill (kernel build and first launches), then ``iters``
-    timed ones, each ended by a device synchronise.  An encdec model
-    encodes zero frames, as the reference's calibration does."""
+    the prefill step captured (``repro_torch.graphs.capture``: a CUDA graph on
+    the card, the step itself on the CPU), one warm-up call, then
+    ``iters`` timed ones, each ended by a device synchronise.  The cache
+    is allocated once and held, as the reference's is (a recurrent model
+    then starts each prefill from the state the last one left: other
+    values, the same work).  An encdec model encodes zero frames, as the
+    reference's calibration does."""
     import torch
 
+    from ..graphs import capture
     from ..models import api
 
     params = api.init_params(smoke_cfg, seed, device)
     pfn = api.prefill_fn(smoke_cfg)
+    cache = api.init_cache(smoke_cfg, 1, n_tokens, device)
     inputs = {"tokens": torch.zeros((1, n_tokens), dtype=torch.int64, device=device)}
     if smoke_cfg.family == "encdec":
         inputs["frames"] = torch.zeros((1, smoke_cfg.enc_frames, smoke_cfg.d_model), dtype=torch.bfloat16,
                                        device=device)
 
-    def step():
-        cache = api.init_cache(smoke_cfg, 1, n_tokens, device)
-        return pfn(params, inputs, cache, 0)[0]
-
     with torch.inference_mode():
-        step()
+        step = capture(lambda p, i, c: pfn(p, i, c, 0)[0], params, inputs, cache, held=(0, 2))
+        step(params, inputs, cache)
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(iters):
-            step()
-        _sync(device)
+            step(params, inputs, cache)
+            _sync(device)
         dt = (time.perf_counter() - t0) / iters
     return prefill_flops(smoke_cfg, n_tokens) / max(dt, 1e-9)

@@ -5,7 +5,10 @@ The hook has the engine's signature ``(tokens, reused) -> (blocks,
 seconds)``.  It recomputes the whole prompt and drops the blocks the cache
 already supplied, exactly as the reference hook in ``examples/serve_e2e.py``
 does, and synchronises the device before it stops the clock (without that
-the time would measure only the launches).
+the time would measure only the launches).  The prefill of each prompt
+length it serves is captured up front by ``repro_torch.graphs.capture``
+(one CUDA graph per length on the card, the step itself on the CPU), as
+the reference hook jits its prefill.
 
 Each block keeps the reference's stored layout, so one store can hold
 blocks from either package: ``(block, 2·L·KVH·Dh)`` float16, k then v,
@@ -22,6 +25,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
+from ..graphs import capture
 from ..models import api
 
 
@@ -37,17 +41,32 @@ def fortran_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return y.reshape(n, -1, block).transpose(1, 2)
 
 
-def make_real_prefill(cfg, params, block: int, device="cuda") -> Callable:
+def make_real_prefill(cfg, params, block: int, device="cuda", *, lengths) -> Callable:
     """Return the engine's ``real_prefill`` hook for ``cfg`` and ``params``
-    on ``device``.  ``hook.calls`` counts the prefills it ran."""
-    prefill = api.prefill_fn(cfg)
+    on ``device``, serving prompts of the lengths in ``lengths``.  Each
+    length's prefill (a fresh cache of that many slots, prefilled at 0:
+    the step ``launch/steps.build_prefill_step`` builds, without its
+    logits) is captured here, before the engine runs and its I/O threads
+    start; a prompt of another length raises.  ``hook.calls`` counts the
+    prefills it ran, ``hook.steps`` maps each length to its step."""
+    pfn = api.prefill_fn(cfg)
+
+    def step_of(n: int):
+        def prefill_step(params, inputs):
+            return pfn(params, inputs, api.init_cache(cfg, 1, n, inputs["tokens"].device), 0)[1]
+
+        toks = torch.zeros((1, n), dtype=torch.int64, device=device)
+        return capture(prefill_step, params, {"tokens": toks}, held=(0,))
 
     def real_prefill(tokens, reused) -> Tuple[List[np.ndarray], float]:
+        step = real_prefill.steps.get(len(tokens))
+        if step is None:
+            raise ValueError(f"a {len(tokens)}-token prompt: the hook serves the lengths it was built for, "
+                             f"{sorted(real_prefill.steps)}")
         t0 = time.perf_counter()
         with torch.inference_mode():
             toks = torch.tensor(tokens, dtype=torch.int64, device=device)[None, :]
-            cache = api.init_cache(cfg, 1, len(tokens), device)
-            prefill(params, {"tokens": toks}, cache, 0)
+            cache = step(params, {"tokens": toks})  # the step's own cache, read below before its next replay
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
@@ -65,4 +84,5 @@ def make_real_prefill(cfg, params, block: int, device="cuda") -> Callable:
         return list(out), dt
 
     real_prefill.calls = 0
+    real_prefill.steps = {n: step_of(n) for n in lengths}
     return real_prefill

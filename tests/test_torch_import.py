@@ -72,6 +72,40 @@ def test_training_runs_with_jax_repro_and_ml_dtypes_blocked(tmp_path):
     assert out.stdout.split()[-1] == "ok"
 
 
+def test_launch_modules_run_with_jax_repro_and_benchmarks_blocked(tmp_path):
+    """``launch.steps``, ``launch.serve`` and ``launch.mesh`` import and run
+    on the CPU with ``jax``, ``repro``, ``benchmarks`` and ``ml_dtypes``
+    blocked: a captured prefill and decode step (the steps themselves on
+    the CPU) and the serve launcher over a small staged workload."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"):
+            sys.modules[name] = None
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import mesh, serve, steps
+        from repro_torch.models import api
+        cfg = get_config("glm4-9b", smoke=True)
+        params = api.init_params(cfg, 0, "cpu")
+        toks = {{"tokens": torch.arange(8)[None]}}
+        pre = steps.capture(steps.build_prefill_step(cfg, ShapeConfig("p", 9, 1, "prefill")), params, toks, held=(0,))
+        logits, cache = pre(params, toks)
+        dec = steps.build_decode_step(cfg, ShapeConfig("d", 9, 1, "decode"))
+        logits, cache = dec(params, logits.argmax(-1, keepdim=True), cache, torch.tensor(8, dtype=torch.int32))
+        assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all())
+        res = serve.main(["--prompt-len", "64", "--requests", "4", "--stages", "0.2,0.5", "--root", {str(tmp_path)!r}])
+        assert [r.stage for r in res] == [0, 1] and mesh.HBM_BW == 3.35e12
+        assert not any(k == "jax" or k.startswith(("jax.", "repro.", "benchmarks", "ml_dtypes")) for k in sys.modules
+                       if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_no_module_of_the_port_names_jax_or_the_reference():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():

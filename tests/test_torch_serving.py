@@ -43,7 +43,7 @@ def test_real_prefill_blocks_match_reference_hook(smoke, reused):
     cfg, jparams, tparams = smoke
     tokens = np.random.default_rng(1).integers(0, 50_000, 128).tolist()  # ids past V, as served
     want, _ = jax_real_prefill(cfg, jparams, BLOCK)(tokens, reused)
-    hook = make_real_prefill(cfg, tparams, BLOCK, "cpu")
+    hook = make_real_prefill(cfg, tparams, BLOCK, "cpu", lengths=(128,))
     got, seconds = hook(tokens, reused)
     assert hook.calls == 1 and seconds > 0
     assert len(got) == len(want) == (128 - reused) // BLOCK
@@ -51,6 +51,20 @@ def test_real_prefill_blocks_match_reference_hook(smoke, reused):
     for g, w in zip(got, want):
         assert g.dtype == np.float16 and g.shape == w.shape == (BLOCK, width)
         np.testing.assert_allclose(g.astype(np.float32), w.astype(np.float32), rtol=3e-2, atol=3e-2)
+
+
+def test_real_prefill_refuses_a_length_it_was_not_built_for(smoke):
+    """The hook's steps are built (captured, on the card) when the hook is
+    made, before the engine runs: a prompt of another length raises
+    instead of building a step inside the engine's run loop."""
+    cfg, _, tparams = smoke
+    hook = make_real_prefill(cfg, tparams, BLOCK, "cpu", lengths=(32,))
+    assert sorted(hook.steps) == [32]
+    with pytest.raises(ValueError, match="lengths it was built for"):
+        hook(list(range(48)), 0)
+    assert hook.calls == 0
+    blocks, _ = hook(list(range(32)), 16)
+    assert hook.calls == 1 and len(blocks) == 1
 
 
 def test_serve_e2e_reuse_matches_reference_engine(smoke):
