@@ -128,7 +128,32 @@ Phases, in order, one line each:
                    --simulate-crash on the card in a subprocess
                    (deterministic algorithms), whose losses after the resume
                    must replay the uninterrupted run's
- 16. kernels       one JSON line describing the six kernels: `launches` is
+ 16. distributed   the distributed layer (no kernel on it: launch counters
+                   reset at its start read 0 for all six at its end), with
+                   the train phase's state freed: (a) an NCCL process group
+                   of world size 1 over an in-process store, the (1, 1)
+                   smoke mesh on the card, and full 40-layer qwen3-14b's
+                   per-card GB of params and f32 AdamW state on the (16, 16)
+                   mesh, reckoned from shard_slices (a count); (b) one
+                   full-width qwen3-14b forward and backward (8 of 40
+                   layers, 4.20 B bf16 gradient entries) through
+                   compress_grads and the all-reduce over NCCL, leaf by leaf,
+                   gated (|dequant(q) - (g + e)| <= scale/2 per entry, the
+                   new residual g + e - dequant(q) bit for bit, the reduced
+                   gradient dequant(q) bit for bit at world size 1), with
+                   compress and all-reduce ms (CUDA events) beside their
+                   bound (11 and 5 bytes an entry) and their share of the
+                   train step; (c) 4 gloo ranks on the one card (spawned):
+                   the compressed all-reduce of small gradients on CUDA
+                   tensors equals the same on CPU tensors bit for bit; (d)
+                   gpipe at one stage over NCCL, equal to the stage
+                   function bit for bit; in a subprocess with deterministic
+                   algorithms, the non-distributed loop and launch/train.main
+                   --data 1 on full-width qwen3-14b (8 layers, 2 steps),
+                   losses bit for bit, and the second run's checkpoint
+                   restored under the (1, 1) mesh's shardings, each leaf
+                   bit for bit the file's; the group destroyed at the end
+ 17. kernels       one JSON line describing the six kernels: `launches` is
                    the wrappers' count over the main path's run (eager
                    launches and launches recorded into graphs at capture),
                    `replayed_launches` the launches the main path's graph
@@ -144,6 +169,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1969,6 +1995,7 @@ def train_steps(base):
             raise AssertionError("train: the step with bf16 m and a factored v is not finite")
     del state, params
     torch.cuda.empty_cache()
+    return warm
 
 
 def train_resume():
@@ -2006,7 +2033,7 @@ def phase_train():
     optimizer, (a) full-width steps and the memory options, (d) crash and
     resume.  Every kernel's launch count reads 0 over the phase: training
     runs the plain versions, as the reference trains through its plain
-    attention and scans."""
+    attention and scans.  Returns the median step ms of (a)."""
     import torch
 
     from repro_torch import kernels
@@ -2016,12 +2043,363 @@ def phase_train():
     kernels.reset_launch_counts()
     train_grad_check(base)
     train_optimizer_check()
-    train_steps(base)
+    step_ms = train_steps(base)
     train_resume()
     counts = kernels.launch_counts()
     line("train", launches=json.dumps(counts).replace(" ", ""))
     if any(counts.values()):
         raise AssertionError(f"train: kernels launched on the training path: {counts}")
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+# ---------------------------------------------------------------- distributed
+# (b): |dequant(q) - (g + e)| <= scale/2 holds for the exact quotient; the
+# f32 quotient g'/scale and the f32 product q·scale each round once, adding
+# at most 127·scale·2^-24 apiece, so the gate allows scale·(1/2 + 2^-16)
+COMPRESS_SLACK = 2.0**-16
+COMPRESS_BYTES, REDUCE_BYTES = 11, 5  # per entry: g bf16 + e f32 in, q + e out; q in, the f32 mean out
+GLOO_RANKS = 4
+DIST_STEPS = 2
+
+
+def _card_bytes(shardings, specs):
+    """{mesh coordinate: bytes it holds of a tree of specs}."""
+    from repro_torch.models.common import tree_leaves
+
+    totals = {}
+    for sh, x in zip(tree_leaves(shardings), tree_leaves(specs)):
+        for coord, sl in sh.shard_slices(tuple(x.shape)).items():
+            totals[coord] = totals.get(coord, 0) + math.prod(s.stop - s.start for s in sl) * x.element_size()
+    return totals
+
+
+def dist_rules():
+    """(a) The full 40-layer qwen3-14b's parameters and f32 AdamW state per
+    card on the (16, 16) production mesh, reckoned from ``shard_slices``
+    (a count, not a timing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed.sharding import AbstractMesh, axis_sizes
+    from repro_torch.launch import steps
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(ARCH)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    ocfg = steps.opt_config_for(cfg)
+    p_specs, o_specs, _ = steps.train_abstract_inputs(cfg, SHAPES["train_4k"], ocfg)
+    (p_sh, o_sh, _), _ = steps.train_shardings(mesh, cfg, SHAPES["train_4k"], ocfg)
+    p_bytes, o_bytes = _card_bytes(p_sh, p_specs), _card_bytes(o_sh, o_specs)
+    per = {c: (p_bytes[c], o_bytes[c]) for c in p_bytes}
+    worst = max(per, key=lambda c: sum(per[c]))
+    whole = [sum(x.numel() * x.element_size() for x in tree_leaves(t)) for t in (p_specs, o_specs)]
+    line("distributed", part="a", arch=cfg.name, layers=cfg.n_layers, mesh=json.dumps(axis_sizes(mesh)).replace(" ", ""),
+         moments=ocfg.moment_dtype, params_gb=f"{whole[0] / 1e9:.2f}", opt_state_gb=f"{whole[1] / 1e9:.2f}",
+         per_card_params_gb=f"{per[worst][0] / 1e9:.4f}", per_card_opt_state_gb=f"{per[worst][1] / 1e9:.4f}",
+         per_card_share=f"{sum(per[worst]) / sum(whole):.5f}", cards=len(per),
+         note="count_from_shard_slices_not_a_timing")
+    return per[worst]
+
+
+def dist_compression(mesh, step_ms):
+    """(b) The gradients of one full-width qwen3-14b forward and backward,
+    TRAIN_LAYERS of 40 layers, through compress_grads and the all-reduce
+    over NCCL at world size 1, leaf by leaf: a first pass fills the
+    residuals (and starts NCCL's communicator, which the first collective
+    does), the second is timed (CUDA events) and gated."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as cmp
+    from repro_torch.models import api
+    from repro_torch.training.loop import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    params = api.init_params(cfg, SEED, "cuda")
+    names = [n for n, _ in _named_leaves(params)]
+    _, _, grads = loss_and_grads(api.loss_fn(cfg, plain_kernels=True), params, _train_batch(cfg, 0))
+    del params
+    torch.cuda.empty_cache()
+    entries = sum(g.numel() for g in grads)
+    res = [torch.zeros(g.shape, dtype=torch.float32, device="cuda") for g in grads]
+    for i, g in enumerate(grads):
+        res[i] = cmp.allreduce_compressed(mesh, {"g": g}, {"g": res[i]})[1]["g"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compress_ms = reduce_ms = whole_ms = 0.0
+    worst_share, worst_leaf = 0.0, None
+    for i, (name, g) in enumerate(zip(names, grads)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        q, s, e_new = cmp.compress_grads({"g": g}, {"g": res[i]})
+        ev[1].record()
+        out = cmp.allreduce_quantized(mesh, q, s)
+        ev[2].record()
+        red2, res2 = cmp.allreduce_compressed(mesh, {"g": g}, {"g": res[i]})
+        ev[3].record()
+        ev[3].synchronize()
+        compress_ms += ev[0].elapsed_time(ev[1])
+        reduce_ms += ev[1].elapsed_time(ev[2])
+        whole_ms += ev[2].elapsed_time(ev[3])
+        gf = g.float() + res[i]
+        deq = cmp.dequantize_tensor(q["g"], s["g"])
+        share = float((deq - gf).abs().max() / s["g"])
+        if share > worst_share:
+            worst_share, worst_leaf = share, name
+        if share > 0.5 + COMPRESS_SLACK:
+            raise AssertionError(f"distributed: {name}: |dequant(q) - (g + e)| is {share:.6f} of the scale")
+        if not torch.equal(e_new["g"], gf - deq):
+            raise AssertionError(f"distributed: {name}: the new residual is not g + e - dequant(q)")
+        if not (torch.equal(out["g"], deq) and torch.equal(red2["g"], deq) and torch.equal(res2["g"], e_new["g"])):
+            raise AssertionError(f"distributed: {name}: at world size 1 the reduced gradient is not dequant(q)")
+        res[i] = e_new["g"]
+        del q, s, e_new, out, red2, res2, gf, deq
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    c_bound, _ = bound_ms(COMPRESS_BYTES * entries, 0)
+    r_bound, _ = bound_ms(REDUCE_BYTES * entries, 0)
+    line("distributed", part="b", what=f"compress_grads and the all-reduce over NCCL (world 1), qwen3-14b "
+         f"{TRAIN_LAYERS} of 40 layers at full width, one {TRAIN_BATCH}x{TRAIN_SEQ} batch's bf16 gradients",
+         leaves=len(grads), entries=entries, compress_ms=f"{compress_ms:.3f}", allreduce_ms=f"{reduce_ms:.3f}",
+         allreduce_compressed_ms=f"{whole_ms:.3f}",
+         compress_bound_ms=f"{c_bound:.3f}", allreduce_bound_ms=f"{r_bound:.3f}",
+         bound=f"{COMPRESS_BYTES}+{REDUCE_BYTES}_bytes_per_entry_at_3.35TB/s",
+         compress_x_bound=f"{compress_ms / c_bound:.2f}", allreduce_x_bound=f"{reduce_ms / r_bound:.2f}",
+         residuals_gb=f"{4 * entries / 1e9:.2f}", train_step_ms=f"{step_ms:.3f}",
+         compress_over_step=f"{compress_ms / step_ms:.4f}", allreduce_over_step=f"{reduce_ms / step_ms:.4f}",
+         peak_mem_gb=f"{peak:.2f}", worst_err_over_scale=f"{worst_share:.6f}", worst_leaf=worst_leaf,
+         gates="err<=scale*(1/2+2^-16),residual_bitwise,reduced==dequant(q)_bitwise")
+    del grads, res
+    torch.cuda.empty_cache()
+
+
+def _gloo_inputs(rank: int):
+    """Rank ``rank``'s small gradients and residuals, from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng((SEED, rank))
+    shapes = {"a": (16, 8), "b": (5, 12)}
+    return ({k: rng.standard_normal(s).astype(np.float32) * (rank + 1) for k, s in shapes.items()},
+            {k: (rng.standard_normal(s) * 0.01).astype(np.float32) for k, s in shapes.items()})
+
+
+def _gloo_rank(rank: int, store: str, out_dir: str):
+    """(c) One of GLOO_RANKS gloo ranks on the one card: the compressed
+    all-reduce of small gradients on CUDA tensors and on CPU tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as cmp
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=GLOO_RANKS)
+    try:
+        mesh = make_smoke_mesh(GLOO_RANKS, 1, device="cuda")
+        g, e = _gloo_inputs(rank)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            red, res = cmp.allreduce_compressed(mesh, {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                                                {k: torch.from_numpy(v).to(dev) for k, v in e.items()})
+            out[dev] = {k: (red[k].cpu(), res[k].cpu(), red[k].device.type) for k in red}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _join(procs, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"distributed: {what}: exit codes {[p.exitcode for p in procs]}"
+                             + (f", killed at {timeout} s" if alive else ""))
+
+
+def dist_gloo_cuda():
+    """(c) GLOO_RANKS gloo ranks on the one card: the compressed all-reduce
+    on CUDA tensors equals the same run on CPU tensors bit for bit, on
+    every rank."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gloo_") as d:
+        procs = [ctx.Process(target=_gloo_rank, args=(r, os.path.join(d, "store"), d)) for r in range(GLOO_RANKS)]
+        for p in procs:
+            p.start()
+        _join(procs, 300, "the gloo ranks on CUDA tensors")
+        outs = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(GLOO_RANKS)]
+    equal = all(torch.equal(o["cuda"][k][i], o["cpu"][k][i]) for o in outs for k in o["cuda"] for i in (0, 1))
+    same = all(torch.equal(o["cuda"][k][0], outs[0]["cuda"][k][0]) for o in outs for k in o["cuda"])
+    on_card = all(o["cuda"][k][2] == "cuda" for o in outs for k in o["cuda"])
+    g = [_gloo_inputs(r)[0]["a"] for r in range(GLOO_RANKS)]
+    exact = sum(g) / GLOO_RANKS
+    rel = float(((outs[0]["cuda"]["a"][0].numpy() - exact) ** 2).sum() ** 0.5 / (exact**2).sum() ** 0.5)
+    line("distributed", part="c", ranks=GLOO_RANKS, backend="gloo", tensors="cuda_and_cpu", leaves="16x8,5x12",
+         cuda_equals_cpu_bitwise=equal, ranks_agree=same, results_on_card=on_card,
+         rel_err_vs_exact_mean=f"{rel:.4e}", seconds=f"{time.perf_counter() - t0:.1f}")
+    if not (equal and same and on_card and rel < 0.02):
+        raise AssertionError("distributed: the compressed all-reduce on CUDA tensors over gloo differs from CPU")
+
+
+def _loop_child(root: str, result: str):
+    """(d) In a fresh process (deterministic algorithms, set before cuBLAS
+    starts): the non-distributed loop and the data-parallel loop through
+    launch/train.main --data 1 on qwen3-14b at full width, TRAIN_LAYERS
+    layers, DIST_STEPS steps; then the DP run's checkpoint restored under
+    the (1, 1) mesh's shardings, each leaf against the file on the card.
+    The non-distributed run is one step longer with DIST_STEPS's schedule
+    and stops after DIST_STEPS (``crash_after``), so it writes none of
+    the 42 GB checkpoint the DP run writes."""
+    import dataclasses
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optim
+    from repro_torch.training.loop import TrainConfig, default_optimizer, train
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    out = {}
+    t0 = time.perf_counter()
+    plain = train(cfg, TrainConfig(steps=DIST_STEPS + 1, ckpt_every=DIST_STEPS + 1,
+                                   ckpt_dir=os.path.join(root, "plain"), log_every=1),
+                  default_optimizer(DIST_STEPS), crash_after=DIST_STEPS, device="cuda", log=lambda *_: None)
+    if os.path.exists(os.path.join(root, "plain")):
+        raise AssertionError("distributed: the non-distributed run wrote a checkpoint")
+    out["plain_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp_dir = os.path.join(root, "dp")
+    dp = launcher.main(["--full", "--layers", str(TRAIN_LAYERS), "--steps", str(DIST_STEPS), "--ckpt-every",
+                        str(DIST_STEPS), "--ckpt-dir", dp_dir, "--data", "1", "--device", "cuda"])
+    out["dp_s"] = time.perf_counter() - t0
+    out["plain"], out["dp"] = plain["losses"], dp["losses"]
+
+    t0 = time.perf_counter()
+    assert init_process_group("cuda")
+    try:
+        mesh = make_smoke_mesh(1, 1, device="cuda")
+        p_specs = api.param_specs(cfg)
+        o_specs = optim.state_specs(default_optimizer(DIST_STEPS), p_specs)
+        p_sh = shd.param_shardings(mesh, p_specs)
+        like = {"params": p_specs, "opt": o_specs}
+        shardings = {"params": p_sh, "opt": shd.opt_state_shardings(mesh, o_specs, p_sh)}
+        got, manifest = ckpt.restore(dp_dir, DIST_STEPS, like, shardings)
+        leaves, differ, nbytes = tree_flatten(got)[0], 0, 0
+        with np.load(os.path.join(dp_dir, f"step_{DIST_STEPS:09d}", "shard_00000.npz")) as data:
+            for i, t in enumerate(leaves):
+                a = t.to_local()
+                if a.dtype == torch.bfloat16:
+                    a, want = a.view(torch.int16), data[f"leaf_{i:05d}__bf16"].view(np.int16)
+                else:
+                    want = data[f"leaf_{i:05d}"]
+                differ += int(not torch.equal(a, torch.from_numpy(np.asarray(want, order="C")).to(a.device)))
+                nbytes += a.numel() * a.element_size()
+        out["restore"] = {"leaves": len(leaves), "differ": differ, "gb": nbytes / 1e9, "step": manifest["step"],
+                          "dtensor": all(type(t).__name__ == "DTensor" for t in leaves),
+                          "device": leaves[0].to_local().device.type}
+    finally:
+        dist.destroy_process_group()
+    out["restore_s"] = time.perf_counter() - t0
+    with open(result, "w") as f:
+        json.dump(out, f)
+
+
+def dist_rest(mesh):
+    """(d) gpipe at one stage over NCCL; the data-parallel loop and the
+    sharded restore (``_loop_child``, in a subprocess)."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.pipeline import gpipe
+
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    w = torch.randn((1, 8, 8), generator=gen, device="cuda") * 0.3
+    xs = torch.randn((6, 2, 8), generator=gen, device="cuda")
+    fn = lambda p, x: torch.tanh(x @ p)  # noqa: E731
+    ys = gpipe(fn, smesh, axis="stage")(w, xs)
+    seq = torch.stack([fn(w[0], x) for x in xs])
+    line("distributed", part="d", check="gpipe at one stage over NCCL vs the stage applied to each microbatch",
+         microbatches=xs.shape[0], equal_bitwise=bool(torch.equal(ys, seq)))
+    if not torch.equal(ys, seq):
+        raise AssertionError("distributed: gpipe at one stage differs from the stage function")
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="dist_loop_") as root:
+        result = os.path.join(root, "result.json")
+        p = ctx.Process(target=_loop_child, args=(root, result))
+        p.start()
+        _join([p], 900, "the data-parallel loop")
+        with open(result) as f:
+            out = json.load(f)
+    r = out["restore"]
+    line("distributed", part="d", check=f"launch/train.main --data 1 vs the non-distributed loop, qwen3-14b "
+         f"{TRAIN_LAYERS} of 40 layers at full width, {DIST_STEPS} steps, deterministic algorithms",
+         losses_dp=",".join(f"{x:.6f}" for x in out["dp"]), losses_plain=",".join(f"{x:.6f}" for x in out["plain"]),
+         bitwise=out["dp"] == out["plain"], dp_s=f"{out['dp_s']:.1f}", plain_s=f"{out['plain_s']:.1f}")
+    line("distributed", part="d", check="the data-parallel run's checkpoint restored under the (1,1) mesh's "
+         "shardings, each leaf against the file", leaves=r["leaves"], differ=r["differ"], gb=f"{r['gb']:.2f}",
+         step=r["step"], dtensor=r["dtensor"], device=r["device"], seconds=f"{out['restore_s']:.1f}")
+    if out["dp"] != out["plain"] or len(out["dp"]) != DIST_STEPS:
+        raise AssertionError("distributed: the data-parallel loop's losses are not the loop's bit for bit")
+    if r["differ"] or not r["dtensor"] or r["device"] != "cuda" or r["step"] != DIST_STEPS:
+        raise AssertionError("distributed: the sharded restore is not the checkpoint bit for bit")
+
+
+def phase_distributed(step_ms):
+    """The distributed layer on the card, after phase train: (a) an NCCL
+    group of world size 1 (in-process store) and the (1, 1) smoke mesh, and
+    the rules at production size; (b) compression at full width; (c) four
+    gloo ranks on CUDA tensors; (d) gpipe at one stage, the data-parallel
+    loop and the sharded restore.  No kernel launches (gated)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+
+    kernels.reset_launch_counts()
+    if not init_process_group("cuda"):
+        raise AssertionError("distributed: a process group was already open")
+    try:
+        mesh = make_smoke_mesh(1, 1, device="cuda")
+        line("distributed", backend=dist.get_backend(), world_size=dist.get_world_size(),
+             mesh=json.dumps(dict(zip(mesh.mesh_dim_names, mesh.shape))).replace(" ", ""),
+             device_type=mesh.device_type, store="in-process")
+        dist_rules()
+        dist_compression(mesh, step_ms)
+        dist_gloo_cuda()
+        dist_rest(mesh)
+    finally:
+        dist.destroy_process_group()
+    counts = kernels.launch_counts()
+    line("distributed", launches=json.dumps(counts).replace(" ", ""))
+    if any(counts.values()):
+        raise AssertionError(f"distributed: kernels launched: {counts}")
     torch.cuda.empty_cache()
 
 
@@ -2103,7 +2481,8 @@ def main() -> int:
     _, _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
     phase_model("whisper", SEED)
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
-    phase_train()
+    step_ms = phase_train()
+    phase_distributed(step_ms)
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}

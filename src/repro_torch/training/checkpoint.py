@@ -17,9 +17,15 @@ and ``latest_step`` and ``prune`` only ever see committed checkpoints (the
 train loop's auto-resume contract).
 
 numpy has no bfloat16 of its own and the port does not use ``ml_dtypes``:
-bf16 leaves go through their 16-bit integer view both ways.  The
-reference's restore onto a mesh (``shardings``) has no counterpart yet:
-``restore`` places every leaf on one device.
+bf16 leaves go through their 16-bit integer view both ways.
+
+Under a process group of several ranks, ``save`` is collective: DTensor
+leaves are gathered whole (``full_tensor``) on every rank, rank 0 alone
+writes and commits, and every rank waits at a barrier until the commit is
+done.  Elastic restore: leaves are stored whole, so ``restore`` with
+``shardings`` (a tree of ``distributed.sharding.NamedSharding``) places
+every leaf for the current mesh — a checkpoint taken on one mesh shape
+restores onto any other.
 """
 
 from __future__ import annotations
@@ -31,11 +37,19 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.common import tree_flatten, tree_unflatten
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -43,9 +57,16 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None) -> str:
-    """Atomically persist ``tree`` (params/opt_state/metadata tree)."""
+    """Atomically persist ``tree`` (params/opt_state/metadata tree); every
+    rank of an open process group calls it."""
     leaves, _ = tree_flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _rank() != 0:
+        for leaf in leaves:  # the gathers are collective
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()
+        dist.barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -71,6 +92,8 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic commit
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -97,10 +120,12 @@ def _from_numpy(a: np.ndarray, bf16: bool, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def restore(ckpt_dir: str, step: int, like, device="cuda"):
+def restore(ckpt_dir: str, step: int, like, shardings=None, device="cuda"):
     """Restore a tree saved by ``save`` (by either package).  ``like``
-    supplies the tree structure; dtypes are the stored ones, and every
-    leaf is placed on ``device``.  Returns (tree, manifest)."""
+    supplies the tree structure; dtypes are the stored ones.  Every leaf
+    is placed on ``device``, or, with ``shardings`` (a tree like ``like``'s
+    of ``NamedSharding`` on a ``DeviceMesh``), as a DTensor under its
+    sharding on the mesh's device type.  Returns (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -109,11 +134,15 @@ def restore(ckpt_dir: str, step: int, like, device="cuda"):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected {len(leaves_like)}"
         )
+    shs = None if shardings is None else tree_flatten(shardings)[0]
+    if shs is not None and len(shs) != len(leaves_like):
+        raise ValueError(f"{len(shs)} shardings for {len(leaves_like)} leaves")
     out = []
     with np.load(os.path.join(path, "shard_00000.npz")) as data:
         for i in range(len(leaves_like)):
             bf16 = f"leaf_{i:05d}__bf16" in data
-            out.append(_from_numpy(data[f"leaf_{i:05d}__bf16" if bf16 else f"leaf_{i:05d}"], bf16, device))
+            a = data[f"leaf_{i:05d}__bf16" if bf16 else f"leaf_{i:05d}"]
+            out.append(_from_numpy(a, bf16, device) if shs is None else shs[i].place(_from_numpy(a, bf16, "cpu")))
     return tree_unflatten(treedef, out), manifest
 
 

@@ -91,6 +91,12 @@ def init_state(cfg: OptimizerConfig, params) -> Dict:
     }
 
 
+def state_specs(cfg: OptimizerConfig, param_specs) -> Dict:
+    """Meta-tensor tree mirroring ``init_state`` (the dry-run path):
+    ``init_state`` on the meta-tensor ``param_specs``."""
+    return init_state(cfg, param_specs)
+
+
 def global_norm(tree):
     return torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in tree_flatten(tree)[0]))
 

@@ -1,0 +1,225 @@
+"""Multi-rank runs of the port's distributed layer on the CPU: gloo ranks
+spawned with ``torch.multiprocessing``, each rank running one function of
+this module and leaving its results in ``<workdir>/rank<r>.pt``.  The
+functions import torch and the port only (no JAX), so the ranks start
+quickly; ``tests/test_torch_distributed.py`` holds their results against
+the JAX package run in a subprocess on host devices.
+
+The inputs come from numpy with a seed (``inputs``), the same arrays the
+JAX side gets.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+N_STAGES, N_MICRO, MB, D = 4, 6, 2, 8  # tests/test_pipeline.py's schedule
+GRAD_SHAPES = {"a": (16, 8), "b": (5, 12)}  # a ragged leaf too
+
+
+def inputs(world: int = 4, seed: int = 0):
+    """Per-rank gradients and residuals (rank r's gradient scaled by r + 1,
+    so the ranks' scales differ and the max-scale requantization acts),
+    the gpipe stage weights and microbatches, and the checkpoint tree."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in GRAD_SHAPES.items():
+        out[f"grad_{k}"] = np.stack([rng.standard_normal(shape).astype(np.float32) * (r + 1) for r in range(world)])
+        out[f"res_{k}"] = (rng.standard_normal((world,) + shape) * 0.01).astype(np.float32)
+    out["w"] = (rng.standard_normal((N_STAGES, D, D)) * 0.3).astype(np.float32)
+    out["xs"] = rng.standard_normal((N_MICRO, MB, D)).astype(np.float32)
+    out["ckpt_w"] = rng.standard_normal((8, 8)).astype(np.float32)
+    out["ckpt_b"] = rng.standard_normal(8).astype(np.float32)  # stored as bf16
+    return out
+
+
+def stage_fn(p, x):
+    return torch.tanh(x @ p)
+
+
+def sequential(w, xs):
+    for s in range(w.shape[0]):
+        xs = stage_fn(w[s], xs)
+    return xs
+
+
+def _entry(rank, world, store, fn, workdir, args):
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, workdir, *args)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, workdir: str, *args, timeout: float = 240.0):
+    """``fn(rank, world, workdir, *args)`` on ``world`` gloo ranks; returns
+    the list of what each rank returned.  A rank that raises fails the
+    run with its traceback; ranks still running at ``timeout`` are
+    killed."""
+    os.makedirs(workdir, exist_ok=True)
+    store = os.path.join(workdir, "store")
+    ctx = mp.start_processes(_entry, args=(world, store, fn, workdir, args), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks did not finish in {timeout} s")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt")) for r in range(world)]
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def four_ranks(rank, world, workdir, inp, ckpt_from_jax, ckpt_for_jax):
+    """place, the compressed all-reduce (both forms), gpipe at 4 stages,
+    and the elastic restores, on 4 gloo ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.compression import allreduce_compressed, allreduce_quantized, quantize_tensor
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import checkpoint as ckpt
+
+    out = {}
+    # place: every leaf's local shard is the slice shard_slices names for
+    # this rank's coordinate; qwen3 on (data 2, model 2), kimi-k2 with its
+    # ZeRO over (pod, data) on (pod 2, data 2, model 1)
+    placed_leaves = 0
+    for arch, mesh, fsdp in (("qwen3-14b", make_smoke_mesh(2, 2, device="cpu"), ("data",)),
+                             ("kimi-k2-1t-a32b", make_smoke_mesh(2, 1, pod=2, device="cpu"), ("pod", "data"))):
+        params = api.init_params(get_config(arch, smoke=True), 0, "cpu")
+        shs = shd.param_shardings(mesh, params, fsdp)
+        placed = shd.place(params, shs)
+        coord = tuple(mesh.get_coordinate())
+        for t, d, sh in zip(tree_flatten(params)[0], tree_flatten(placed)[0], tree_flatten(shs)[0]):
+            assert d.placements == tuple(sh.placements())
+            assert torch.equal(d.to_local(), t[sh.shard_slices(tuple(t.shape))[coord]])
+            assert torch.equal(d.full_tensor(), t)
+            placed_leaves += 1
+        out[f"composite_{arch}"] = sum(1 for sh in tree_flatten(shs)[0] for e in sh.spec if isinstance(e, tuple))
+    out["placed_leaves"] = placed_leaves
+    rows = shd.NamedSharding(make_smoke_mesh(2, 1, pod=2, device="cpu"), shd.P(("pod", "data")))
+    out["pod_data_rows"] = rows.place(torch.arange(8.0)).to_local().tolist()
+
+    # the compressed all-reduce over data (4 ranks)
+    mesh = make_smoke_mesh(4, 1, device="cpu")
+    grads = {k: torch.from_numpy(inp[f"grad_{k}"][rank]) for k in GRAD_SHAPES}
+    res = {k: torch.from_numpy(inp[f"res_{k}"][rank]) for k in GRAD_SHAPES}
+    reduced, new_res = allreduce_compressed(mesh, grads, res)
+    out["reduced"], out["new_res"] = reduced, new_res
+    q, s = quantize_tensor(grads["a"])  # tests/test_compression_e2e.py's form: no residual
+    out["e2e_q"], out["e2e_s"] = q, s
+    out["e2e_reduced"] = allreduce_quantized(mesh, {"a": q}, {"a": s})["a"]
+
+    # gpipe: 4 stages, 6 microbatches
+    smesh = init_device_mesh("cpu", (N_STAGES,), mesh_dim_names=("stage",))
+    w = torch.from_numpy(inp["w"])
+    out["ys"] = gpipe(stage_fn, smesh, axis="stage")(w[rank:rank + 1], torch.from_numpy(inp["xs"]))
+
+    # elastic restore: saved from a (2, 2) mesh, restored onto (4, 1) with
+    # another layout; and the reference's (2, 2) checkpoint onto (4, 1)
+    m1, m2 = make_smoke_mesh(2, 2, device="cpu"), make_smoke_mesh(4, 1, device="cpu")
+    tree = {"w": torch.from_numpy(inp["ckpt_w"]), "b": _bf16(inp["ckpt_b"])}
+    sh1 = {"w": shd.NamedSharding(m1, shd.P("data", "model")), "b": shd.NamedSharding(m1, shd.P("model"))}
+    sh2 = {"w": shd.NamedSharding(m2, shd.P("model", "data")), "b": shd.NamedSharding(m2, shd.P("data"))}
+    ckpt.save(ckpt_for_jax, 3, shd.place(tree, sh1))
+    out["restored"] = {}
+    for name, d in (("own", ckpt_for_jax), ("jax", ckpt_from_jax)):
+        got, manifest = ckpt.restore(d, 3, tree, sh2, device="cpu")
+        coord = tuple(m2.get_coordinate())
+        for k in tree:
+            assert got[k].placements == tuple(sh2[k].placements()), (name, k)
+            assert torch.equal(got[k].to_local(), got[k].full_tensor()[sh2[k].shard_slices(tuple(tree[k].shape))[coord]])
+        out["restored"][name] = ({k: v.full_tensor() for k, v in got.items()}, manifest["step"])
+    return out
+
+
+def two_ranks(rank, world, workdir, inp, steps, cfg_arch, ckpt_root):
+    """The data-parallel train step over data 2 (f32), gpipe at one stage,
+    and the data-parallel loop's crash and resume (restored under
+    shardings), on 2 gloo ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import optim
+    from repro_torch.training.loop import TrainConfig, default_optimizer, train
+
+    out = {}
+    mesh = make_smoke_mesh(world, 1, device="cpu")
+    cfg = get_config(cfg_arch, smoke=True)
+    params, losses = dp_steps(cfg, steps, mesh)
+    out["losses"], out["params"] = losses, params
+
+    # one stage: no ring, the stage function applied to every microbatch
+    pmesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "stage"))
+    w, xs = torch.from_numpy(inp["w"]), torch.from_numpy(inp["xs"])
+    out["one_stage"] = gpipe(stage_fn, pmesh, axis="stage")(w[:1], xs)
+    out["one_stage_want"] = stage_fn(w[0], xs)
+
+    # the loop under the mesh: uninterrupted, then crashed after step 3
+    # with checkpoints every 2 and resumed, the checkpoint restored under
+    # the ZeRO shardings of the parameters and state; rank 0 alone writes
+    quiet = dict(log=lambda *_: None, device="cpu", mesh=mesh)
+    tc = dict(steps=6, ckpt_every=2, log_every=100)
+    full = train(cfg, TrainConfig(ckpt_dir=os.path.join(ckpt_root, "full"), **tc), **quiet)
+    crash_dir = os.path.join(ckpt_root, "crash")
+    c1 = train(cfg, TrainConfig(ckpt_dir=crash_dir, **tc), crash_after=3, **quiet)
+    p_specs = api.param_specs(cfg)
+    o_specs = optim.state_specs(default_optimizer(tc["steps"]), p_specs)
+    p_sh = shd.param_shardings(mesh, p_specs)
+    shardings = {"params": p_sh, "opt": shd.opt_state_shardings(mesh, o_specs, p_sh)}
+    out["sharded_leaves"] = sum(any(isinstance(p, Shard) for p in sh.placements()) for sh in tree_leaves(shardings))
+    c2 = train(cfg, TrainConfig(ckpt_dir=crash_dir, **tc), shardings=shardings, **quiet)
+    out["loop"] = {"full": full["losses"], "crashed": c1["crashed"], "resumed_from": c2["resumed_from"],
+                   "resumed": c2["losses"], "files": sorted(os.listdir(crash_dir))}
+    return out
+
+
+def dp_steps(cfg, steps: int, mesh=None):
+    """``steps`` train steps of qwen3-14b-smoke in f32 (the parameters of
+    seed 0 cast to f32) on SyntheticLM batches of 4 x 32 from seed 3:
+    data-parallel under ``mesh``, else in one process.  -> (params, losses)."""
+    from repro_torch.models import api
+    from repro_torch.training import optim
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.loop import make_train_step
+
+    params = _map(lambda t: t.float(), api.init_params(cfg, 0, "cpu"))
+    ocfg = optim.OptimizerConfig(warmup_steps=1, total_steps=10)
+    state = optim.init_state(ocfg, params)
+    step = make_train_step(cfg, ocfg, mesh)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=3))
+    losses = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(a) for k, a in data.batch_at(s).items()}
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+    return params, losses
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)

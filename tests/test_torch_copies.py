@@ -40,3 +40,35 @@ def test_copy_list_covers_the_packages():
         assert port_files == {f for f in COPIED if f.startswith(pkg + "/")}
     assert not (PORT / "obs" / "catalog.py").exists()
     assert not (PORT / "obs" / "httpd.py").exists()
+
+
+def _block(text: str, start: str) -> str:
+    """The lines of ``text`` from the one starting with ``start`` to the
+    next blank line."""
+    lines = text.splitlines()
+    i = next(n for n, line in enumerate(lines) if line.startswith(start))
+    j = next(n for n in range(i, len(lines)) if not lines[n].strip())
+    return "\n".join(lines[i:j])
+
+
+@pytest.mark.parametrize("start", ["BATCH = ", "_RULES: Sequence", "_ATTN_CACHE = "])
+def test_sharding_rules_are_the_references_verbatim(start):
+    """``repro_torch.distributed.sharding`` is a port, not a copy (it
+    imports torch), but its rule tables are the reference's, line for
+    line: read as text, neither module imported."""
+    ref = (REF / "distributed" / "sharding.py").read_text()
+    port = (PORT / "distributed" / "sharding.py").read_text()
+    assert _block(port, start) == _block(ref, start)
+
+
+def test_distributed_package_is_a_port_that_names_neither_jax_nor_the_reference():
+    """The three modules of the reference's distributed package have ports
+    of the same names, and none of them imports jax or repro."""
+    ref = {p.name for p in (REF / "distributed").glob("*.py")}
+    port = {p.name for p in (PORT / "distributed").glob("*.py")}
+    assert ref == port == {"__init__.py", "sharding.py", "compression.py", "pipeline.py"}
+    for name in port:
+        text = (PORT / "distributed" / name).read_text()
+        assert text != (REF / "distributed" / name).read_text()
+        imports = [ln.strip() for ln in text.splitlines() if ln.strip().startswith(("import ", "from "))]
+        assert not any("jax" in ln or ln.startswith(("import repro", "from repro")) for ln in imports), name

@@ -106,6 +106,57 @@ def test_launch_modules_run_with_jax_repro_and_benchmarks_blocked(tmp_path):
     assert out.stdout.split()[-1] == "ok"
 
 
+def test_distributed_layer_runs_with_jax_repro_and_ml_dtypes_blocked(tmp_path):
+    """``repro_torch.distributed`` and ``launch.mesh`` import and run on the
+    CPU with ``jax``, ``repro`` and ``ml_dtypes`` blocked, in a gloo group
+    of world size 1: the (1, 1) smoke mesh, qwen3-14b-smoke's parameters
+    placed under their shardings, the compressed all-reduce (at one rank,
+    dequant(q) itself), gpipe at one stage, a checkpoint restored under the
+    shardings, and the rules reckoned for the 256-card production mesh."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+            sys.modules[name] = None
+        import torch, torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import compression as cmp, sharding as shd
+        from repro_torch.distributed.pipeline import gpipe
+        from repro_torch.launch import mesh as meshes
+        from repro_torch.models import api
+        from repro_torch.models.common import tree_flatten
+        from repro_torch.training import checkpoint as ckpt
+        cfg = get_config("qwen3-14b", smoke=True)
+        big = shd.param_shardings(shd.AbstractMesh((16, 16), ("data", "model")), api.param_specs(get_config("qwen3-14b")))
+        assert big["blocks"]["attn"]["wq"].spec == shd.P(None, "data", "model")
+        assert meshes.init_process_group("cpu")
+        try:
+            mesh = meshes.make_smoke_mesh(1, 1, device="cpu")
+            params = api.init_params(cfg, 0, "cpu")
+            shs = shd.param_shardings(mesh, params)
+            placed = shd.place(params, shs)
+            assert all(torch.equal(a.to_local(), b) for a, b in zip(tree_flatten(placed)[0], tree_flatten(params)[0]))
+            g = {{"w": torch.linspace(-1, 1, 12).reshape(3, 4)}}
+            red, res = cmp.allreduce_compressed(mesh, g, cmp.init_residuals(g))
+            q, s, _ = cmp.compress_grads(g, cmp.init_residuals(g))
+            assert torch.equal(red["w"], cmp.dequantize_tensor(q["w"], s["w"]))
+            pm = torch.distributed.device_mesh.init_device_mesh("cpu", (1,), mesh_dim_names=("stage",))
+            xs = torch.ones(3, 2, 4)
+            assert torch.equal(gpipe(lambda p, x: x @ p, pm)(torch.eye(4)[None], xs), xs)
+            ckpt.save({str(tmp_path)!r}, 1, params)
+            got, _ = ckpt.restore({str(tmp_path)!r}, 1, params, shs)
+            assert all(torch.equal(a.full_tensor(), b) for a, b in zip(tree_flatten(got)[0], tree_flatten(params)[0]))
+        finally:
+            dist.destroy_process_group()
+        assert not any(k == "jax" or k.startswith(("jax.", "repro.", "ml_dtypes")) for k in sys.modules
+                       if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_no_module_of_the_port_names_jax_or_the_reference():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
