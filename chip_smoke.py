@@ -153,7 +153,24 @@ Phases, in order, one line each:
                    losses bit for bit, and the second run's checkpoint
                    restored under the (1, 1) mesh's shardings, each leaf
                    bit for bit the file's; the group destroyed at the end
- 17. kernels       one JSON line describing the six kernels: `launches` is
+ 17. tensor-parallel  tensor parallelism over `model` (no kernel on it:
+                   launch counters reset at its start read 0 for all six
+                   at its end, in this process and on each rank): (a)
+                   full-width qwen3-14b, 2 of 40 layers, on an f32 copy of
+                   the seed's weights: one process's loss and gradients
+                   (make_grad_fn, to a file), then 2 spawned gloo ranks
+                   on CUDA tensors at (data 1, model 2) (split over KV
+                   heads: 20 q / 4 KV heads, 8704 hidden, 75968
+                   vocabulary columns a rank), each rank's loss and every
+                   gradient leaf gated against one process's (rtol 1e-5,
+                   atol = rtol 1e-4), each step's ms and the gradient
+                   sum over model alone; (b) launch/train.main --full
+                   --layers 2 --data 1 --model 2 on the same two ranks in
+                   bf16, its 2 losses against the --model 1 run's in a
+                   fresh process (rtol 1e-3, TP_LAUNCH_RTOL's reason).
+                   Gloo stages every collective through host memory, so
+                   its times say nothing of NVLink
+ 18. kernels       one JSON line describing the six kernels: `launches` is
                    the wrappers' count over the main path's run (eager
                    launches and launches recorded into graphs at capture),
                    `replayed_launches` the launches the main path's graph
@@ -171,6 +188,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2403,6 +2421,231 @@ def phase_distributed(step_ms):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ tensor-parallel
+TP_RANKS = 2  # (data, model) = (1, 2): two gloo ranks on the one card (NCCL takes one rank a card)
+TP_LAYERS = 2
+TP_STEPS = 2
+# (a): the data-parallel case's tolerances (tests/test_torch_distributed.py):
+# f32, the splits sum partial products over model in another order than one
+# device's single products
+TP_LOSS_RTOL, TP_LOSS_ATOL = 1e-5, 1e-6
+TP_GRAD_TOL = 1e-4  # atol = rtol, per entry
+# (b): bf16; each model rank's partial product is rounded to bf16 before the
+# f32 sum over model, a rounding one device does not make (the CPU smoke run
+# reads 8e-5 apart); a quarter of one bf16 step (2^-8) still fails a partial
+# dropped or counted twice (tests/test_torch_distributed.py, LAUNCH_RTOL)
+TP_LAUNCH_RTOL = 1e-3
+
+
+def _tp_split(cfg, model: int):
+    """What each model rank computes of full-width ``cfg``: its heads, KV
+    heads, SwiGLU hidden and vocabulary columns (uneven slices where
+    ``model`` does not divide)."""
+    from repro_torch.models.common import grouped_head_split, split_range
+
+    G = cfg.n_heads // cfg.n_kv_heads
+    by = grouped_head_split(cfg.n_kv_heads, G, model)
+    parts = []
+    for r in range(model):
+        kv = split_range(cfg.n_kv_heads, model, r, "kv") if by == "kvh" else (0, cfg.n_kv_heads)
+        g = (0, G) if by == "kvh" else split_range(G, model, r, "g")
+        f, v = split_range(cfg.d_ff, model, r, "f"), split_range(cfg.vocab_size, model, r, "v")
+        parts.append(f"{(kv[1] - kv[0]) * (g[1] - g[0])}q/{kv[1] - kv[0]}kv,{f[1] - f[0]},{v[1] - v[0]}")
+    return by, ";".join(parts)
+
+
+def _tp_grad_ms(grad_fn, params, batch):
+    """(loss, parts, grads, ms): one call of ``grad_fn``, host clock,
+    synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, parts, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    return loss, parts, grads, (time.perf_counter() - t0) * 1e3
+
+
+def _tp_reference(root: str):
+    """(a), one process: the loss and gradients of qwen3-14b at full width,
+    TP_LAYERS layers, on an f32 copy of the seed's weights, the second of
+    two calls timed; the gradients go to the host and a file for the ranks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training.loop import make_grad_fn
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_LAYERS)
+    params = f32_tree(api.init_params(cfg, SEED, "cuda"))
+    batch, grad_fn = _train_batch(cfg, 0), make_grad_fn(cfg)
+    grad_fn(params, batch)
+    loss, parts, grads, ms = _tp_grad_ms(grad_fn, params, batch)
+    torch.save({"loss": float(loss), "grads": [g.cpu() for g in grads]}, os.path.join(root, "ref.pt"))
+    del params, grads
+    torch.cuda.empty_cache()
+    return float(loss), ms
+
+
+def _tp_launch_one(root: str, result: str):
+    """(b), in a fresh process: ``launch/train.main --full --layers
+    TP_LAYERS --data 1 --model 1`` (one rank, NCCL at world size 1)."""
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    res = launcher.main(["--full", "--layers", str(TP_LAYERS), "--steps", str(TP_STEPS), "--ckpt-every",
+                         str(TP_STEPS), "--ckpt-dir", os.path.join(root, "one"), "--data", "1", "--model", "1",
+                         "--device", "cuda"])
+    with open(result, "w") as f:
+        json.dump({"losses": res["losses"], "s": time.perf_counter() - t0}, f)
+
+
+def _tp_rank_grads(root: str, mesh):
+    """(a) on one rank: the loss and gradients of ``_tp_reference``'s
+    model through ``make_grad_fn`` under ``mesh``, the second of two calls
+    timed, gated per leaf against the one-process file; then the gradient
+    reduction over model timed alone."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.training.loop import make_grad_fn, reduce_grads
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_LAYERS)
+    params = f32_tree(api.init_params(cfg, SEED, "cuda"))
+    batch, grad_fn, out = _train_batch(cfg, 0), make_grad_fn(cfg, mesh), {}
+    torch.cuda.reset_peak_memory_stats()
+    grad_fn(params, batch)
+    loss, _, grads, out["step_ms"] = _tp_grad_ms(grad_fn, params, batch)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ref = torch.load(os.path.join(root, "ref.pt"), mmap=True)
+    out["loss"], out["loss_ref"] = float(loss), ref["loss"]
+    per_leaf = []  # (|g - want| - (atol + rtol |want|), max |g - want|, leaf) at the worst entry
+    for (name, _), g, want in zip(_named_leaves(params), grads, ref["grads"]):
+        want = want.to("cuda")
+        gap = torch.sub(g, want).abs_()
+        worst_gap = float(gap.max())
+        per_leaf.append((float(gap.sub_(want.abs_().mul_(TP_GRAD_TOL).add_(TP_GRAD_TOL)).max()), worst_gap, name))
+    out["worst_excess"], out["worst_gap"], out["worst_leaf"] = max(per_leaf)
+    out["leaves"] = len(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reduce_grads(mesh, shd.model_partial_leaves(api.param_specs(cfg)), grads)
+    torch.cuda.synchronize()
+    out["reduce_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _tp_rank(rank: int, store: str, root: str):
+    """One of TP_RANKS gloo ranks on the one card, at (data, model) = (1,
+    TP_RANKS): (a) ``_tp_rank_grads``; (b) ``launch/train.main --full
+    --layers TP_LAYERS --data 1 --model TP_RANKS``.  Writes its results,
+    its kernel launch counts among them, to ``root/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP_RANKS)
+    try:
+        out = _tp_rank_grads(root, make_smoke_mesh(1, TP_RANKS, device="cuda"))
+        line("tensor-parallel", part="a", rank=rank, loss=f"{out['loss']:.7f}",
+             loss_one_process=f"{out['loss_ref']:.7f}", leaves=out["leaves"], worst_leaf=out["worst_leaf"],
+             worst_abs_gap=f"{out['worst_gap']:.3e}", worst_excess_over_tol=f"{out['worst_excess']:.3e}",
+             step_ms=f"{out['step_ms']:.1f}", grad_reduce_ms=f"{out['reduce_ms']:.1f}",
+             peak_mem_gb=f"{out['peak_mem_gb']:.2f}",
+             gates=f"loss_rtol{TP_LOSS_RTOL}_atol{TP_LOSS_ATOL},grads_atol=rtol{TP_GRAD_TOL}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = launcher.main(["--full", "--layers", str(TP_LAYERS), "--steps", str(TP_STEPS), "--ckpt-every",
+                             str(TP_STEPS), "--ckpt-dir", os.path.join(root, "tp"), "--data", "1", "--model",
+                             str(TP_RANKS), "--device", "cuda"])
+        out["launch_losses"], out["launch_s"] = res["losses"], time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tensor_parallel():
+    """Tensor parallelism over ``model`` on the card: (a) full-width
+    qwen3-14b, TP_LAYERS of 40 layers, f32: one process's loss and
+    gradients, then TP_RANKS spawned gloo ranks at (1, TP_RANKS) on CUDA
+    tensors, each gated against them leaf by leaf; (b) ``launch/train.main
+    --model TP_RANKS`` in bf16 against ``--model 1``.  No kernel launches,
+    in this process or on any rank (gated).  Step times are over gloo
+    through host memory (NCCL takes one rank a card), so they say nothing
+    of NVLink."""
+    import dataclasses
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    kernels.reset_launch_counts()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_LAYERS)
+    by, split = _tp_split(cfg, TP_RANKS)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tp_") as root:
+        loss1, ms1 = _tp_reference(root)
+        line("tensor-parallel", part="a", arch=cfg.name, layers=f"{TP_LAYERS}_of_40", dtype="float32",
+             mesh=f"data1_model{TP_RANKS}", backend="gloo", tensors="cuda", split_by=by,
+             per_rank_heads_hidden_vocab=split, batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+             one_process_step_ms=f"{ms1:.1f}", one_process_loss=f"{loss1:.7f}",
+             note="step=forward+backward+gradient_reduction;ranks_over_gloo_through_host_memory_not_NVLink")
+        one = os.path.join(root, "one.json")
+        p = ctx.Process(target=_tp_launch_one, args=(root, one))
+        p.start()
+        _join([p], 600, "the --model 1 launcher run")
+        with open(one) as f:
+            one = json.load(f)
+        shutil.rmtree(os.path.join(root, "one"), ignore_errors=True)
+        procs = [ctx.Process(target=_tp_rank, args=(r, os.path.join(root, "store"), root)) for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        _join(procs, 900, "the tensor-parallel ranks")
+        outs = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    losses = outs[0]["launch_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+    line("tensor-parallel", part="b", check=f"launch/train.main --full --layers {TP_LAYERS} --data 1 --model "
+         f"{TP_RANKS} vs --model 1, bf16, {TP_STEPS} steps", losses_model2=",".join(f"{x:.6f}" for x in losses),
+         losses_model1=",".join(f"{x:.6f}" for x in one["losses"]), max_rel_gap=f"{rel:.3e}", rtol=TP_LAUNCH_RTOL,
+         model2_s=f"{outs[0]['launch_s']:.1f}", model1_s=f"{one['s']:.1f}")
+    counts = kernels.launch_counts()
+    line("tensor-parallel", launches=json.dumps(counts).replace(" ", ""),
+         rank_launches=json.dumps([o["launches"] for o in outs]).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    for r, o in enumerate(outs):
+        if abs(o["loss"] - o["loss_ref"]) > TP_LOSS_ATOL + TP_LOSS_RTOL * abs(o["loss_ref"]):
+            raise AssertionError(f"tensor-parallel: rank {r}'s loss {o['loss']} is not one process's {o['loss_ref']}")
+        if o["worst_excess"] > 0:
+            raise AssertionError(f"tensor-parallel: rank {r}'s gradient of {o['worst_leaf']} is {o['worst_gap']:.3e} "
+                                 f"from one process's (atol = rtol {TP_GRAD_TOL})")
+        if o["launch_losses"] != losses or any(o["launches"].values()):
+            raise AssertionError(f"tensor-parallel: rank {r}'s launcher losses or launch counts differ: {o}")
+    if len(losses) != TP_STEPS or rel > TP_LAUNCH_RTOL or any(counts.values()):
+        raise AssertionError(f"tensor-parallel: --model {TP_RANKS} losses {losses} against --model 1 "
+                             f"{one['losses']} (rtol {TP_LAUNCH_RTOL}), launches {counts}")
+
+
 def kernels_line(recs, counts, replayed):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main path that runs it: the qwen3-14b serve for flash and
@@ -2483,6 +2726,7 @@ def main() -> int:
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
     step_ms = phase_train()
     phase_distributed(step_ms)
+    phase_tensor_parallel()
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}

@@ -37,7 +37,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
-from ..models.common import tree_flatten, tree_unflatten
+from ..models.common import MODEL_AXIS, tree_flatten, tree_unflatten
 
 BATCH = ("pod", "data")
 
@@ -250,6 +250,37 @@ def param_spec_for(path_str: str, ndim: int, stacked: bool, fsdp_axes: Tuple[str
             if len(body) < ndim:
                 return P(*((None,) * (ndim - len(body)) + body))
     return P()  # replicated (norms, scalars, small tables)
+
+
+# Leaves the rules split over ``model`` whose activations the reference
+# constrains nowhere (the embedding's gather, rwkv6's time- and
+# channel-mix, the hybrid's Mamba-2 blocks): the models compute with them
+# whole on every model rank.
+_NO_SITE = r"(^|/)embed$|(^|/)(time|chan|mamba)/"
+
+
+def model_partial(path_str: str, ndim: int, stacked: bool) -> bool:
+    """Whether tensor parallelism leaves the gradient of this leaf a partial
+    sum on each ``model`` rank, to be summed over ``model``: the rules
+    split it over ``model`` (whether or not ``model`` divides the dim: the
+    models take uneven slices) and the models compute with it split.  A
+    leaf the rules keep whole has a whole gradient on every rank: it is
+    used before the split, or enters it through
+    ``models.common.copy_to_model``."""
+    if re.search(_NO_SITE, path_str):
+        return False
+    spec = param_spec_for(path_str, ndim, stacked, ())
+    return any(MODEL_AXIS in _parts(e) for e in spec)
+
+
+def model_partial_leaves(param_specs):
+    """``model_partial`` of every leaf of a parameter tree, in
+    ``tree_flatten`` order."""
+    def leaf(path, x):
+        ps = _path_str(path)
+        return model_partial(ps, len(x.shape), "blocks" in ps)
+
+    return tree_flatten(_map_with_path(leaf, param_specs))[0]
 
 
 def param_shardings(mesh, param_specs, fsdp_axes: Tuple[str, ...] = ("data",)):

@@ -1,18 +1,33 @@
-"""Parameter-spec trees and their materialisation on an explicit device.
+"""Parameter-spec trees and their materialisation on an explicit device,
+and the tensor-parallel context the models' splits read.
 
 A nested dict of ``Spec`` leaves is the single source of truth for a
 model's parameters; ``tree_init`` turns it into a dict of tensors with the
-reference's init schemes.  The reference's sharding hooks (``constrain``,
-mesh helpers) have no counterpart: the port runs on one device.
+reference's init schemes.
+
+The reference's sharding hook is ``constrain`` (``with_sharding_constraint``
+under ``with mesh``, the identity without one): a layout, never another
+function.  Its counterpart here is ``tensor_parallel(mesh)``, which the
+training step enters: under it, with a ``model`` axis over 1, the layers
+at the reference's constrain sites (``layers.py``, ``transformer.py``,
+``encdec.py``) compute their rank's part of the split (heads, the SwiGLU
+hidden dim, experts, the vocabulary) from views of parameters every rank
+holds whole, and join the parts with the two conjugate collectives below,
+so the loss and gradients are one device's.  Without the context, or at a
+``model`` size of 1, every layer runs its one-device code unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclass(frozen=True)
@@ -119,3 +134,163 @@ def resolve_device(device) -> torch.device:
 
 def count_params(tree) -> int:
     return sum(int(t.numel()) for t in tree_leaves(tree))
+
+
+# ------------------------------------------------------ tensor parallelism
+# the reference's axis names: batch over (pod, data), the splits over model
+BATCH_AXES = ("pod", "data")
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class MeshAxes:
+    """What the models read of the mesh a training step runs under: the
+    ``model`` axis's group, this rank's coordinate on it and its size, and
+    the batch axes' groups and the product of their sizes."""
+
+    model_group: Any
+    model_rank: int
+    model_size: int
+    batch_groups: Tuple[Any, ...]
+    batch_size: int
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+def _mesh_axes(mesh) -> MeshAxes:
+    """A ``DeviceMesh``'s groups and this rank's coordinate, by axis name."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    batch = [a for a in BATCH_AXES if a in sizes]
+    model = sizes.get(MODEL_AXIS, 1)
+    return MeshAxes(
+        model_group=mesh.get_group(MODEL_AXIS) if model > 1 else None,
+        model_rank=mesh.get_local_rank(MODEL_AXIS) if model > 1 else 0,
+        model_size=model,
+        batch_groups=tuple(mesh.get_group(a) for a in batch if sizes[a] > 1),
+        batch_size=int(np.prod([sizes[a] for a in batch])),
+    )
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh):
+    """``with tensor_parallel(mesh):`` runs the models as the reference runs
+    them under ``with mesh``: split over ``model`` at the constrain sites,
+    and moe's balance term taken over the batch the batch axes hold.
+    ``mesh=None`` enters nothing."""
+    token = _MESH.set(None if mesh is None else _mesh_axes(mesh))
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def current_tp() -> Optional[MeshAxes]:
+    """The active context when its ``model`` axis is over 1, else None:
+    the constrain sites split only then."""
+    axes = _MESH.get()
+    return axes if axes is not None and axes.model_size > 1 else None
+
+
+def under_current_mesh(fn):
+    """``fn`` bound to the context active now, for code that runs it later
+    on another thread (activation checkpointing recomputes a block during
+    the backward, which runs on the autograd engine's device threads)."""
+    axes = _MESH.get()
+    if axes is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        token = _MESH.set(axes)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _MESH.reset(token)
+
+    return run
+
+
+def no_cache_under_tp(cache) -> None:
+    """The prefill and decode with caches under a ``model`` axis over 1,
+    which the reference lowers and never runs, are not ported: a cache
+    raises there."""
+    if cache is not None and current_tp() is not None:
+        raise NotImplementedError("a forward with a cache under a model axis over 1: tensor parallelism "
+                                  "covers the training forward only")
+
+
+def split_range(n: int, parts: int, index: int, what: str) -> Tuple[int, int]:
+    """[lo, hi) of part ``index`` of ``n`` items cut into ``parts`` runs in
+    order, the first ``n % parts`` one longer (an uneven dim takes uneven
+    slices); ``what`` names the dim when a part would be empty."""
+    if n < parts:
+        raise ValueError(f"{what}: {n} cannot split {parts} ways over the model axis")
+    q, r = divmod(n, parts)
+    lo = index * q + min(index, r)
+    return lo, lo + q + (index < r)
+
+
+def grouped_head_split(kvh: int, g: int, model: int) -> str:
+    """Which dim of the grouped-head layout (..., KVH, G, ...) attention
+    splits over ``model`` (the reference's ``_grouped_head_axes``): "g"
+    when ``model`` divides the groups, else "kvh" when it divides the KV
+    heads, else the larger of the two ("kvh" on a tie), in uneven slices
+    where the reference's GSPMD pads."""
+    if g % model == 0:
+        return "g"
+    if kvh % model == 0:
+        return "kvh"
+    return "kvh" if kvh >= g else "g"
+
+
+def _sum_f32(t, groups):
+    """``t`` summed over the ranks of ``groups`` (one after another) in
+    f32, rounded once to ``t``'s dtype; ``t`` itself is not written."""
+    acc = t.to(torch.float32, copy=True)
+    for g in groups:
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=g)
+    return acc.to(t.dtype)
+
+
+class _Collective(torch.autograd.Function):
+    """The identity or a sum over ``groups`` forward (``fwd``), the
+    identity or a sum backward (``bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, groups, fwd: bool, bwd: bool):
+        ctx.groups, ctx.bwd = groups, bwd
+        return _sum_f32(x, groups) if fwd else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sum_f32(g, ctx.groups) if ctx.bwd else g), None, None, None
+
+
+def copy_to_model(x, tp: MeshAxes):
+    """Where a replicated tensor enters a split: the identity forward; the
+    gradient, which each model rank holds only for its part of the split,
+    summed over ``model`` backward."""
+    return _Collective.apply(x, (tp.model_group,), False, True)
+
+
+def reduce_from_model(x, tp: MeshAxes):
+    """Where a split's partial sums leave it: summed over ``model`` forward,
+    the identity backward.  Each rank's partial (its product, in the
+    activation's dtype) crosses the group in f32, and the sum is rounded
+    once to ``x``'s dtype, as the step's gradient mean is.  The loss is the
+    same on every model rank, so its gradient already is: a sum here
+    would multiply it by the ``model`` size."""
+    return _Collective.apply(x, (tp.model_group,), True, False)
+
+
+def mean_over_batch(t):
+    """The mean of ``t`` over the batch axes' ranks under the active
+    context (each rank holding as many rows), ``t`` itself without one.
+    Backward, the gradient is summed over the same ranks: the step then
+    takes the mean of the ranks' gradients, so a term built on this mean
+    counts once, as in the reference's step over the global batch."""
+    axes = _MESH.get()
+    if axes is None or not axes.batch_groups:
+        return t
+    return _Collective.apply(t, axes.batch_groups, True, True) / axes.batch_size

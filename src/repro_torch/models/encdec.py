@@ -10,6 +10,14 @@ decoder's causal self-attention as in ``layers.gqa_attention``, and decode
 cross-attention through the paged decode kernel over the cross cache,
 kv_len = enc_frames.  Layers are stacked on a leading L axis, as in the
 reference, and driven by a Python loop in place of ``lax.scan``.
+
+Under ``common.tensor_parallel`` with a ``model`` axis over 1 (training)
+the encoder's and decoder's attention and MLP split as in ``layers.py``,
+cross-attention over the same heads (``layers.gqa_shard``: the queries of
+this rank's heads against the K/V of its KV heads, built from the memory
+entering through ``copy_to_model``), and the logits and the loss over the
+vocabulary as in ``transformer.py``.  The reference's batch-only
+constraints (``encdec.py:109,147,160``) are the layout the port has.
 """
 
 from __future__ import annotations
@@ -19,10 +27,11 @@ from typing import Dict, Optional
 
 import torch
 
-from .common import Spec, tree_init
+from .common import Spec, copy_to_model, current_tp, no_cache_under_tp, reduce_from_model, tree_init
 from .layers import (F32, decode_over_cache, attend, build_gqa_template, build_mlp_template, decode_index,
-                     gqa_attention, rms_norm, swiglu_mlp)
-from .transformer import cache_len, check_pos, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack
+                     gqa_attention, gqa_shard, rms_norm, swiglu_mlp)
+from .transformer import (cache_len, check_pos, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack,
+                          vocab_logits)
 
 
 # ------------------------------------------------------------- templates
@@ -68,29 +77,39 @@ def encdec_init(cfg, seed: int = 0, device="cuda"):
 
 # ------------------------------------------------------- cross-attention
 def cross_kv(p, mem, cfg):
-    """Encoder memory (B,T,D) -> cross K/V, each (B,T,KVH,Dh); no RoPE."""
+    """Encoder memory (B,T,D) -> cross K/V, each (B,T,KVH,Dh); no RoPE.
+    Under a tensor-parallel context, the KV heads of this rank's split
+    (``layers.gqa_shard``)."""
     B, T, _ = mem.shape
-    KVH, Dh = cfg.n_kv_heads, cfg.d_head
-    k = torch.matmul(mem, p["wk"]).reshape(B, T, KVH, Dh)
-    v = torch.matmul(mem, p["wv"]).reshape(B, T, KVH, Dh)
+    Dh = cfg.d_head
+    tp = current_tp()
+    if tp is not None:
+        p, mem = gqa_shard(p, cfg, tp), copy_to_model(mem, tp)
+    k = torch.matmul(mem, p["wk"]).reshape(B, T, -1, Dh)
+    v = torch.matmul(mem, p["wv"]).reshape(B, T, -1, Dh)
     return k, v
 
 
 def _cross_queries(p, cfg, x):
     B, S, _ = x.shape
-    return torch.matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    return torch.matmul(x, p["wq"]).reshape(B, S, -1, cfg.d_head)
 
 
 def _cross_out(p, cfg, out):
     B, S = out.shape[:2]
-    return torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.d_head), p["wo"])
+    return torch.matmul(out.reshape(B, S, -1), p["wo"])
 
 
 def cross_attention(p, cfg, x, mem_k, mem_v, plain_kernels: bool = False):
     """Decoder x (B,S,D) attends to every one of the T encoder positions
-    in mem_k/mem_v (B,T,KVH,Dh); no RoPE, no qk-norm (as the reference)."""
-    out = attend(_cross_queries(p, cfg, x), mem_k, mem_v, False, 0, plain_kernels)
-    return _cross_out(p, cfg, out)
+    in mem_k/mem_v (B,T,KVH,Dh); no RoPE, no qk-norm (as the reference).
+    Under a tensor-parallel context: this rank's query heads against the
+    KV heads ``cross_kv`` gave it, summed over ``model`` after ``wo``."""
+    tp = current_tp()
+    if tp is not None:
+        p, x = gqa_shard(p, cfg, tp), copy_to_model(x, tp)
+    out = _cross_out(p, cfg, attend(_cross_queries(p, cfg, x), mem_k, mem_v, False, 0, plain_kernels))
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 def cross_decode(p, cfg, x, ck, cv, index, plain_kernels: bool = False):
@@ -151,9 +170,11 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
     cache, whose length must then be enc_frames; without it (decode), the
     cross cache is read, by the paged decode kernel when S == 1.  A decode
     step's ``pos`` may be a 0-d integer tensor on the model's device
-    (``transformer.lm_forward``)."""
+    (``transformer.lm_forward``).  Under a tensor-parallel context
+    (training only) the logits are this rank's vocabulary columns."""
     B, S = tokens.shape
     check_pos(pos, S, cache)
+    no_cache_under_tp(cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
@@ -193,7 +214,7 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
         x = block(x, bp, i)
 
     x = rms_norm(x, params["final_norm"])
-    return torch.matmul(x, params["lm_head"]), cache
+    return vocab_logits(x, params["lm_head"]), cache
 
 
 def encdec_loss(params, cfg, batch, plain_kernels: bool = False):
@@ -201,5 +222,5 @@ def encdec_loss(params, cfg, batch, plain_kernels: bool = False):
     the encoded ``batch["frames"]`` -> (loss, {"ce", "aux"}), aux zero."""
     memory = encode(params, cfg, batch["frames"], plain_kernels)
     logits, _ = decode_forward(params, cfg, batch["tokens"], memory=memory, plain_kernels=plain_kernels)
-    loss = token_cross_entropy(logits, batch["labels"])
+    loss = token_cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=F32, device=loss.device)}

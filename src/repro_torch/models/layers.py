@@ -14,6 +14,17 @@ MLA's prefill runs the flash kernel at q/k head dim 96 and v head dim 64;
 its decode is the reference's absorbed path in latent space, plain torch
 as in the reference, and launches nothing.  The MoE's expert products
 are batched matmuls, which the reference also leaves outside any kernel.
+
+Under ``common.tensor_parallel`` with a ``model`` axis over 1 (the
+training forward: the models' entry points refuse a cache), the layers split at the reference's constrain
+sites: GQA attention over KV heads or query groups
+(``common.grouped_head_split``), MLA attention over heads, the SwiGLU
+hidden dim, and the MoE's experts.  Each rank takes views of its columns
+and rows of parameters it holds whole; the replicated input enters
+through ``copy_to_model`` and the partial output leaves through
+``reduce_from_model``.  Parameters the rules keep whole but that act on
+the split (the QK-norm scales) enter through ``copy_to_model`` too, so
+their gradients come out whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention import paged_decode, paged_decode_ref
 from ..kernels.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
-from .common import Spec
+from .common import (Spec, copy_to_model, current_tp, grouped_head_split, reduce_from_model,
+                     split_range)
 
 F32 = torch.float32
 PAGE = 16  # tokens per page when the dense cache is viewed as KV pages
@@ -135,6 +147,39 @@ def decode_over_cache(q, ck, cv, index, plain: bool):
     return fn(q[:, 0], kp, vp, tables, lens)[:, None]
 
 
+def take_heads(w, dim: int, kvh: int, g: int, dh: int, kv: Tuple[int, int], gs: Tuple[int, int]):
+    """The heads [kv) x [gs) of ``w``'s dim ``dim``, laid out (kvh, g, dh),
+    as that dim again (a view where they are contiguous, else a copy)."""
+    dim %= w.dim()
+    w = w.unflatten(dim, (kvh, g, dh))
+    w = w.narrow(dim, kv[0], kv[1] - kv[0]).narrow(dim + 1, gs[0], gs[1] - gs[0])
+    return w.flatten(dim, dim + 2)
+
+
+def gqa_shard(p, cfg, tp):
+    """This model rank's part of a GQA (or cross-attention) layer: the q, k
+    and v columns and ``wo`` rows of its heads, split over KV heads or over
+    the query groups of every KV head (``common.grouped_head_split``, in
+    uneven slices where ``model`` divides neither), ``qkv_bias`` following
+    its heads and the QK-norm scales whole through ``copy_to_model``."""
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KVH
+    m, r = tp.model_size, tp.model_rank
+    if grouped_head_split(KVH, G, m) == "kvh":
+        kv, gs = split_range(KVH, m, r, f"{cfg.name}'s KV heads"), (0, G)
+    else:
+        kv, gs = (0, KVH), split_range(G, m, r, f"{cfg.name}'s query groups")
+    out = {}
+    for name, w in p.items():
+        if name in ("q_norm", "k_norm"):
+            out[name] = copy_to_model(w, tp)
+        elif name in ("wq", "bq", "wo"):
+            out[name] = take_heads(w, 0 if name == "wo" else -1, KVH, G, Dh, kv, gs)
+        else:  # wk, wv, bk, bv
+            out[name] = take_heads(w, -1, KVH, 1, Dh, kv, (0, 1))
+    return out
+
+
 def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
                   q_offset: int = 0, plain_kernels: bool = False,
                   index: Optional[Tuple] = None):
@@ -147,9 +192,14 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     runs the flash kernel over the cache slice, decode (S == 1, ``pos`` an
     int or a 0-d tensor) the paged decode kernel with ``index`` =
     ``decode_index(B, S_max, pos + 1)`` (built here when the caller passes
-    none)."""
+    none).  Under a tensor-parallel context: this rank's heads
+    (``gqa_shard``), summed over ``model`` after ``wo``."""
     B, S, D = x.shape
-    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    Dh = cfg.d_head
+    tp = current_tp()
+    if tp is not None:
+        p, x = gqa_shard(p, cfg, tp), copy_to_model(x, tp)
+    H, KVH = p["wo"].shape[0] // Dh, p["wk"].shape[-1] // Dh
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
     v = torch.matmul(x, p["wv"])
@@ -184,6 +234,8 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
             out = attend(q, ck[:, :pos + S], cv[:, :pos + S], cfg.causal, pos, plain_kernels)
         new_cache = (ck, cv)
     out = torch.matmul(out.reshape(B, S, H * Dh), p["wo"])
+    if tp is not None:
+        out = reduce_from_model(out, tp)
     return out, new_cache
 
 
@@ -216,10 +268,16 @@ def mla_project_latent(p, cfg, x, positions):
 
 
 def mla_queries(p, cfg, x, positions):
-    """x -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr))."""
+    """x -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr)); H is the heads ``wq_b``
+    holds (this rank's under a tensor-parallel context, where the latent
+    query enters the split through ``copy_to_model``)."""
     B, S, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q_a = rms_norm(torch.matmul(x, p["wq_a"]), p["q_a_norm"])
+    tp = current_tp()
+    if tp is not None:
+        q_a = copy_to_model(q_a, tp)
+    H = p["wq_b"].shape[-1] // (dn + dr)
     q = torch.matmul(q_a, p["wq_b"]).reshape(B, S, H, dn + dr)
     cos, sin = rope_tables(positions, dr, cfg.rope_theta)
     return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
@@ -245,6 +303,17 @@ def _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, kv_len):
     return torch.einsum("bshr,rhd->bshd", o_lat, wv)
 
 
+def mla_shard(p, cfg, tp):
+    """This model rank's heads of an MLA layer: ``wq_b``, ``wk_b`` and
+    ``wv_b`` columns and ``wo`` rows; the latent projections and their
+    norms stay whole (they run before the split)."""
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    hs = split_range(H, tp.model_size, tp.model_rank, f"{cfg.name}'s heads")
+    per = {"wq_b": dn + dr, "wk_b": dn, "wv_b": dv, "wo": dv}
+    return {name: take_heads(w, 0 if name == "wo" else -1, H, 1, per[name], hs, (0, 1)) if name in per else w
+            for name, w in p.items()}
+
+
 def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
                   q_offset: int = 0, plain_kernels: bool = False):
     """MLA attention.  x (B,S,D), positions (B,S) = q_offset + arange(S).
@@ -256,11 +325,20 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     latent to per-head K/V and runs the flash kernel at q/k head dim
     dn+dr, v head dim dv; S == 1 with a cache takes the absorbed path over
     every S_max slot with kv_len = pos + 1 masking the rest, as the
-    reference does, so ``pos`` may there be a 0-d tensor."""
+    reference does, so ``pos`` may there be a 0-d tensor.  Under a
+    tensor-parallel context (training): this rank's heads (``mla_shard``),
+    the latent entering the split through ``copy_to_model``, summed over
+    ``model`` after ``wo``."""
     B, S, _ = x.shape
-    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    tp = current_tp()
+    if tp is not None:
+        p = mla_shard(p, cfg, tp)
+    H = p["wo"].shape[0] // dv
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
     c_new, kr_new = mla_project_latent(p, cfg, x, positions)
+    if tp is not None:
+        c_new, kr_new = copy_to_model(c_new, tp), copy_to_model(kr_new, tp)
 
     if cache is None:
         c_kv, k_rope, new_cache, pos = c_new, kr_new, None, q_offset
@@ -282,6 +360,8 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
         out = attend(q, k, v, cfg.causal, pos, plain_kernels)
     out = torch.matmul(out.reshape(B, S, H * dv), p["wo"])
+    if tp is not None:
+        out = reduce_from_model(out, tp)
     return out, new_cache
 
 
@@ -293,8 +373,17 @@ def build_mlp_template(cfg, d_ff: Optional[int] = None) -> Dict:
 
 
 def swiglu_mlp(p, x):
+    """SwiGLU; under a tensor-parallel context this rank's slice of the
+    hidden dim (``w_gate``/``w_up`` columns, ``w_down`` rows), summed over
+    ``model``."""
+    tp = current_tp()
+    if tp is not None:
+        lo, hi = split_range(p["w_down"].shape[0], tp.model_size, tp.model_rank, "the SwiGLU hidden dim")
+        p = {"w_gate": p["w_gate"][:, lo:hi], "w_up": p["w_up"][:, lo:hi], "w_down": p["w_down"][lo:hi]}
+        x = copy_to_model(x, tp)
     h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
-    return torch.matmul(h, p["w_down"])
+    out = torch.matmul(h, p["w_down"])
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 # --------------------------------------------------------------------- MoE
@@ -349,12 +438,25 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     takes the first C of its pairs into a (B, E, C, D) buffer (the rest
     drop), the experts run as batched matmuls, and each token sums its k
     outputs weighted by its gates.  Returns (out (B,S,D), probs (B·S, E)
-    f32)."""
+    f32).
+
+    Under a tensor-parallel context the route runs whole on every rank
+    (so ``probs``, and the balance term built on it, are the same on
+    each), each rank fills and runs the (B, E/model, C, D) buffer of its
+    experts, combines only the slots its experts own, and the partial
+    outputs are summed over ``model``."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     C = moe_capacity(cfg, S, dropless)
     dev = x.device
     probs, gate_w, gate_e = moe_route(p, cfg, x)
+    tp = current_tp()
+    e0, El = 0, E  # this rank's experts [e0, e0 + El)
+    if tp is not None:
+        e0, e1 = split_range(E, tp.model_size, tp.model_rank, f"{cfg.name}'s experts")
+        El = e1 - e0
+        p = {n: p[n][e0:e1] for n in ("w_gate", "w_up", "w_down")}
+        x, gate_w = copy_to_model(x, tp), copy_to_model(gate_w, tp)
 
     flat_e = gate_e.reshape(B, S * k)
     sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
@@ -365,26 +467,32 @@ def moe_layer(p, cfg, x, dropless: bool = False):
 
     # dispatch: buf[b, e, c] = sorted slot first[b, e] + c
     xs_sorted = _take_rows(x, tok_of)  # (B, S*k, D)
-    slot = first[:, :, None] + torch.arange(C, device=dev)[None, None, :]  # (B,E,C)
+    slot = first[:, e0:e0 + El, None] + torch.arange(C, device=dev)[None, None, :]  # (B,El,C)
     ends = torch.cat([first[:, 1:], torch.full((B, 1), S * k, device=dev, dtype=first.dtype)], dim=1)
-    slot_ok = (slot < ends[:, :, None]).reshape(B, E * C)
-    slot_flat = torch.clamp(slot, 0, S * k - 1).reshape(B, E * C)
-    buf = _take_rows(xs_sorted, slot_flat)  # (B, E*C, D)
-    buf = buf.masked_fill(~slot_ok[..., None], 0).reshape(B, E, C, D)
+    slot_ok = (slot < ends[:, e0:e0 + El, None]).reshape(B, El * C)
+    slot_flat = torch.clamp(slot, 0, S * k - 1).reshape(B, El * C)
+    buf = _take_rows(xs_sorted, slot_flat)  # (B, El*C, D)
+    buf = buf.masked_fill(~slot_ok[..., None], 0).reshape(B, El, C, D)
 
     h = F.silu(torch.matmul(buf, p["w_gate"])) * torch.matmul(buf, p["w_up"])  # (B,E,C,F)
     y = torch.matmul(h, p["w_down"])  # (B,E,C,D)
 
     # combine: sorted slot j reads y[sorted_e[j], pos_in_e[j]], weighted by
     # its gate (cast to the activation dtype, as the reference does), then
-    # the inverse permutation restores token order and the k slots are summed
-    flat_pos = torch.clamp(sorted_e * C + torch.where(valid, pos_in_e, 0), 0, E * C - 1)
-    picked_sorted = _take_rows(y.reshape(B, E * C, D), flat_pos)
+    # the inverse permutation restores token order and the k slots are
+    # summed; under tensor parallelism a rank keeps the slots of its experts
+    if tp is not None:
+        valid = valid & (sorted_e >= e0) & (sorted_e < e0 + El)
+        sorted_e = sorted_e - e0
+    flat_pos = torch.clamp(sorted_e * C + torch.where(valid, pos_in_e, 0), 0, El * C - 1)
+    picked_sorted = _take_rows(y.reshape(B, El * C, D), flat_pos)
     w_sorted = torch.gather(gate_w.reshape(B, S * k), 1, order)
     picked_sorted = picked_sorted * (w_sorted * valid)[..., None].to(y.dtype)
     inv_order = torch.argsort(order, dim=-1)
     picked = _take_rows(picked_sorted, inv_order)
     out = picked.reshape(B, S, k, D).sum(dim=2)
+    if tp is not None:
+        out = reduce_from_model(out, tp)
     return out, probs.reshape(B * S, E)
 
 

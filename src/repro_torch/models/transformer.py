@@ -4,6 +4,16 @@ fill at a reused-prefix offset) and decode (single step), and the training
 loss.  Layers are stacked on a leading L axis, as in the reference, and
 driven by a Python loop in place of ``lax.scan``.  The encdec family
 (Whisper) is assembled in ``models/encdec.py``.
+
+Under ``common.tensor_parallel`` with a ``model`` axis over 1 the training
+forward splits where the reference constrains: the layers' sites
+(``layers.py``), and the logits over the vocabulary (``lm_head`` columns,
+uneven where ``model`` does not divide V), with the cross-entropy taken
+over the split vocabulary.  The embedding's gather, rwkv6's blocks and
+the hybrid's Mamba-2 blocks have no site and run whole on every rank.  The
+reference's ``cfg.seq_shard`` (the residual stream split over sequence
+between blocks) is a layout only: here the residual stream stays whole on
+every model rank.
 """
 
 from __future__ import annotations
@@ -12,9 +22,11 @@ import functools
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
-from .common import Spec, tree_init
+from .common import (Spec, copy_to_model, current_tp, mean_over_batch, no_cache_under_tp, reduce_from_model,
+                     split_range, tree_init, under_current_mesh)
 from .layers import (F32, PAGE, build_gqa_template, build_mla_template, build_mlp_template,
                      build_moe_template, decode_index, gqa_attention, mla_attention, moe_layer,
                      rms_norm, swiglu_mlp)
@@ -155,10 +167,11 @@ def checkpointed(block, remat: bool):
     """``block`` itself, or ``block`` under activation checkpointing when
     ``remat``: its activations are recomputed in the backward instead of
     kept (the reference's ``jax.checkpoint`` of the layer-scan body).  The
-    forward values are the same either way."""
+    forward values are the same either way.  The recomputation runs
+    under the tensor-parallel context of the forward."""
     if not remat:
         return block
-    return functools.partial(torch.utils.checkpoint.checkpoint, block, use_reentrant=False)
+    return functools.partial(torch.utils.checkpoint.checkpoint, under_current_mesh(block), use_reentrant=False)
 
 
 def check_pos(pos, S: int, cache) -> None:
@@ -186,10 +199,17 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     kernel.  Returns (logits (B,S,V), cache, aux); aux["aux_loss"] is an
     f32 scalar tensor, the sum over moe layers of the reference's
     mean-prob balance proxy n_experts·Σ me², me = probs.mean(0) (zero for
-    the other families).  MoE runs dropless whenever a cache is passed."""
+    the other families).  MoE runs dropless whenever a cache is passed.
+
+    Under a tensor-parallel context (``common.tensor_parallel``; training
+    only, a cache raises) the logits are this rank's vocabulary columns
+    (``vocab_logits``), and each moe layer's ``me`` is the mean over the
+    batch axes' ranks (``common.mean_over_batch``): the reference's term
+    over the global batch."""
     require_ported(cfg)
     B, S = tokens.shape
     check_pos(pos, S, cache)
+    no_cache_under_tp(cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
@@ -260,7 +280,7 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
             if cfg.family == "moe":
                 h, probs = moe_layer(bp["moe"], cfg, rms_norm(x, bp["moe_norm"]), dropless=cache is not None)
                 x = x + h
-                me = probs.mean(dim=0)
+                me = mean_over_batch(probs.mean(dim=0))
                 aux = aux + cfg.n_experts * torch.sum(me * me)  # the reference's mean-prob balance proxy
             else:
                 x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
@@ -271,18 +291,53 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
             x, aux = block(x, aux, layers[i], i)
 
     x = rms_norm(x, params["final_norm"])
-    logits = torch.matmul(x, params["lm_head"])
+    logits = vocab_logits(x, params["lm_head"])
     return logits, cache, {"aux_loss": aux}
 
 
+def vocab_logits(x, w):
+    """x @ w: the logits; under a tensor-parallel context this rank's
+    columns of the vocabulary (``split_range`` of w's V)."""
+    tp = current_tp()
+    if tp is None:
+        return torch.matmul(x, w)
+    lo, hi = split_range(w.shape[1], tp.model_size, tp.model_rank, "the vocabulary")
+    return torch.matmul(copy_to_model(x, tp), w[:, lo:hi])
+
+
 # ------------------------------------------------------------------- loss
-def token_cross_entropy(logits, labels):
+def token_cross_entropy(logits, labels, vocab_size: Optional[int] = None):
     """Mean -log p(label) in f32 over the positions whose label is >= 0
-    (the rest are masked out); 0 when every label is masked."""
-    logp = torch.log_softmax(logits.to(F32), dim=-1)
-    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    (the rest are masked out); 0 when every label is masked.  Under a
+    tensor-parallel context ``logits`` are this rank's columns of the
+    ``vocab_size`` (``vocab_logits``), and log p(label) is taken over the
+    split vocabulary (``split_log_prob``)."""
+    tp = current_tp()
+    if tp is None:
+        logp = torch.log_softmax(logits.to(F32), dim=-1)
+        ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        ll = split_log_prob(logits, labels.clamp(min=0), vocab_size, tp)
     mask = (labels >= 0).to(F32)
     return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def split_log_prob(logits, labels, vocab_size: int, tp):
+    """log p(label) from each model rank's vocabulary columns of the
+    logits: z_label - m - log Σ exp(z - m), with the max m taken over
+    ``model`` (constant under differentiation: the result does not depend
+    on it), and the sum of exponentials and the label's logit (which only
+    the rank owning the label holds; the others add 0) summed over
+    ``model`` in f32 (``reduce_from_model``)."""
+    lo, hi = split_range(vocab_size, tp.model_size, tp.model_rank, "the vocabulary")
+    z = logits.to(F32)
+    m = z.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.model_group)
+    sum_exp = reduce_from_model(torch.exp(z - m[..., None]).sum(dim=-1), tp)
+    own = (labels >= lo) & (labels < hi)
+    local = torch.gather(z, -1, torch.where(own, labels - lo, 0).long()[..., None])[..., 0]
+    z_label = reduce_from_model(torch.where(own, local, 0.0), tp)
+    return z_label - m - torch.log(sum_exp)
 
 
 def lm_loss(params, cfg, batch, aux_weight: float = 0.01, plain_kernels: bool = False):
@@ -290,5 +345,5 @@ def lm_loss(params, cfg, batch, aux_weight: float = 0.01, plain_kernels: bool = 
     (B,S)): the cache-free forward, token cross-entropy plus ``aux_weight``
     times the moe balance term -> (loss, {"ce", "aux"})."""
     logits, _, aux = lm_forward(params, cfg, batch["tokens"], plain_kernels=plain_kernels)
-    ce = token_cross_entropy(logits, batch["labels"])
+    ce = token_cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return ce + aux_weight * aux["aux_loss"], {"ce": ce, "aux": aux["aux_loss"]}

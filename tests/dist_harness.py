@@ -197,26 +197,113 @@ def two_ranks(rank, world, workdir, inp, steps, cfg_arch, ckpt_root):
     return out
 
 
-def dp_steps(cfg, steps: int, mesh=None):
-    """``steps`` train steps of qwen3-14b-smoke in f32 (the parameters of
-    seed 0 cast to f32) on SyntheticLM batches of 4 x 32 from seed 3:
-    data-parallel under ``mesh``, else in one process.  -> (params, losses)."""
-    from repro_torch.models import api
-    from repro_torch.training import optim
+def train_batch(cfg, step: int):
+    """The global batch of ``step``: SyntheticLM's 4 x 32 tokens and labels
+    from seed 3, and for encdec stub frames (4, enc_frames, d_model) drawn
+    from numpy with the seed (3, step)."""
     from repro_torch.training.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=3))
+    batch = {k: torch.from_numpy(a) for k, a in data.batch_at(step).items()}
+    if cfg.family == "encdec":
+        rng = np.random.default_rng((3, step))
+        batch["frames"] = torch.from_numpy(rng.standard_normal((4, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def f32_params(cfg):
+    """The parameters of seed 0, cast to f32."""
+    from repro_torch.models import api
+
+    return _map(lambda t: t.float(), api.init_params(cfg, 0, "cpu"))
+
+
+def dp_steps(cfg, steps: int, mesh=None, eps: float = 1e-8):
+    """``steps`` train steps of ``cfg`` in f32 (``f32_params``) on
+    ``train_batch``, AdamW at ``eps``: data- and tensor-parallel under
+    ``mesh``, else in one process.  -> (params, losses)."""
+    from repro_torch.training import optim
     from repro_torch.training.loop import make_train_step
 
-    params = _map(lambda t: t.float(), api.init_params(cfg, 0, "cpu"))
-    ocfg = optim.OptimizerConfig(warmup_steps=1, total_steps=10)
+    params = f32_params(cfg)
+    ocfg = optim.OptimizerConfig(warmup_steps=1, total_steps=10, eps=eps)
     state = optim.init_state(ocfg, params)
     step = make_train_step(cfg, ocfg, mesh)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=3))
     losses = []
     for s in range(steps):
-        batch = {k: torch.from_numpy(a) for k, a in data.batch_at(s).items()}
-        params, state, met = step(params, state, batch)
+        params, state, met = step(params, state, train_batch(cfg, s))
         losses.append(float(met["loss"]))
     return params, losses
+
+
+# the tensor-parallel cases: (arch, overrides of its smoke config).  The
+# smoke configs have H 4 and KVH 2, so attention splits over query groups
+# at model 2; the overrides add the split over KV heads, uneven heads
+# (KVH 3, G 1), hidden dim (127) and experts (3), qkv biases, odd
+# vocabularies and activation checkpointing
+TP_CASES = {
+    "dense": ("qwen3-14b", {}),
+    "dense_kvh": ("qwen3-14b", {"n_kv_heads": 4}),
+    "dense_uneven": ("qwen3-14b", {"n_heads": 3, "n_kv_heads": 3, "d_ff": 127}),
+    "bias": ("qwen2.5-32b", {}),
+    "odd_vocab": ("qwen3-14b", {"vocab_size": 255}),
+    "moe": ("olmoe-1b-7b", {}),
+    "moe_uneven": ("olmoe-1b-7b", {"n_experts": 3}),
+    "moe_remat": ("olmoe-1b-7b", {"remat": True}),
+    "mla": ("minicpm3-4b", {}),
+    "hybrid": ("zamba2-1.2b", {}),
+    "rwkv6": ("rwkv6-1.6b", {}),
+    "whisper": ("whisper-small", {}),
+    "whisper_kvh": ("whisper-small", {"n_kv_heads": 4}),
+}
+
+
+def tp_config(case: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, over = TP_CASES[case]
+    return dataclasses.replace(get_config(arch, smoke=True), **over)
+
+
+# AdamW's eps in the tensor-parallel cases' steps (see
+# tests/test_torch_tensor_parallel.py)
+TP_EPS = 1e-6
+
+
+def grads_and_steps(cfg, steps: int, mesh=None):
+    """The loss terms and gradients of ``train_batch(cfg, 0)`` at
+    ``f32_params`` (``make_grad_fn``), then ``dp_steps`` at ``TP_EPS``;
+    under ``mesh`` on this rank, else in one process."""
+    from repro_torch.training.loop import make_grad_fn
+
+    loss, parts, grads = make_grad_fn(cfg, mesh)(f32_params(cfg), train_batch(cfg, 0))
+    params, losses = dp_steps(cfg, steps, mesh, TP_EPS)
+    return {"loss": float(loss), "aux": float(parts["aux"]), "grads": grads, "params": params, "losses": losses}
+
+
+def tp_ranks(rank, world, workdir, meshes, steps):
+    """``grads_and_steps`` of each case on each (data, model) mesh of
+    ``meshes`` ({(data, model): [case, ...]}), on ``world`` gloo ranks."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.set_num_threads(1)  # smoke shapes: the ranks would only contend for the cores
+    out = {}
+    for (data, model), cases in meshes.items():
+        mesh = make_smoke_mesh(data, model, device="cpu")
+        for case in cases:
+            out[(data, model, case)] = grads_and_steps(tp_config(case), steps, mesh)
+    return out
+
+
+def launcher_ranks(rank, world, workdir, argv):
+    """``launch.train.main(argv)`` on this rank -> its losses."""
+    from repro_torch.launch import train as launcher
+
+    torch.set_num_threads(1)
+    res = launcher.main(argv + ["--ckpt-dir", os.path.join(workdir, "ckpt")])
+    return {"losses": res["losses"]}
 
 
 def _map(fn, tree):

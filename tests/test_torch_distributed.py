@@ -49,6 +49,12 @@ DP_LOSS_RTOL, DP_LOSS_ATOL = 1e-5, 1e-6
 DP_PARAM_TOL = 1e-4
 # the reference's crash-resume tolerance (tests/test_training.py:118)
 RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+# the launcher's smoke config is bf16: each model rank's partial product is
+# rounded to bf16 (8 significant bits) before the f32 sum over model, a
+# rounding one device does not make, so the losses read ~1e-4 apart (8e-5
+# at 2 and 4 steps); a quarter of one bf16 step (2^-8) still fails a
+# partial dropped or counted twice, which moves the loss by far more
+LAUNCH_RTOL = 1e-3
 
 JAX_BEFORE = textwrap.dedent("""
     import os, sys
@@ -352,11 +358,33 @@ def test_data_parallel_loop_resumes_its_own_trajectory(two):
 
 
 # ------------------------------------------------------ launcher and meshes
-def test_launcher_model_2_raises_naming_tensor_parallelism():
+def test_launcher_model_2_runs(tmp_path):
+    """``launch.train.main --data 1 --model 2`` on 2 gloo ranks: the
+    smoke config (bf16) trains 2 steps tensor-parallel, with the losses of
+    the ``--model 1`` run in one process within LAUNCH_RTOL, the same on
+    both ranks."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*constrain sites"):
-        main(["--model", "2", "--device", "cpu", "--steps", "1"])
+    argv = ["--device", "cpu", "--steps", "2", "--ckpt-every", "5"]
+    ranks = dh.run_ranks(dh.launcher_ranks, 2, str(tmp_path / "ranks"), argv + ["--data", "1", "--model", "2"])
+    one = main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    assert ranks[0]["losses"] == ranks[1]["losses"] and len(one["losses"]) == 2
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=LAUNCH_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("world,data,model,want", [
+    (4, None, None, (2, 2)),  # the reference's defaults, where the world allows them
+    (1, None, None, (1, 1)),
+    (2, None, None, (2, 1)),
+    (8, None, None, (8, 1)),
+    (2, None, 2, (1, 2)),
+    (4, 4, None, (4, 1)),
+    (2, 1, 2, (1, 2)),
+])
+def test_launcher_mesh_shape(world, data, model, want):
+    from repro_torch.launch.train import mesh_shape
+
+    assert mesh_shape(world, data, model) == want
 
 
 def test_launcher_keeps_the_references_unused_flags(tmp_path, monkeypatch):
