@@ -170,7 +170,31 @@ Phases, in order, one line each:
                    fresh process (rtol 1e-3, TP_LAUNCH_RTOL's reason).
                    Gloo stages every collective through host memory, so
                    its times say nothing of NVLink
- 18. kernels       one JSON line describing the six kernels: `launches` is
+ 18. dryrun        the dry run (launch.steps.lower_cell: each step traced on
+                   meta tensors in this process under the cost counter,
+                   launch/cost.py; no device) beside this run's own
+                   measurements: (a) qwen3-14b's serve-shape prefill (B 1,
+                   S 128) and decode (B 1, kv 136) at full width at mesh
+                   (1, 1), FLOPs, bytes and roofline terms, and each term's
+                   share of phase serve's graph device ms; (b) the train
+                   cell (8 of 40 layers, B 8 x S 128) against phase train's
+                   step ms; the counter's matmul FLOPs for one eager
+                   plain-path prefill on the card against torch.profiler's
+                   with_flops total (gated within 1 %); (c) qwen3-14b x
+                   train_4k and glm4-9b x decode_32k at full width on the
+                   (16, 16) mesh through launch/dryrun.py in subprocesses,
+                   each record printed (gated ok, FLOPs and bytes > 0).
+                   Decode's bytes gated within 1.0-1.25x of what a decode
+                   step must read (every parameter but the embedding table,
+                   plus the cached tokens' K/V)
+ 19. kernels-micro launch/micro.py on the card: each kernel at the
+                   reference's micro shapes (flash B4 S2048 H16 KVH4 D128,
+                   paged decode B64 H32 KVH8 D128 page 64 x 512 pages,
+                   quantize and dequantize 256 x 8192, WKV B8 H32 S4096 N64
+                   f32, SSD B8 S4096 H32 P64 N64 f32): bytes by design,
+                   its plain version's bytes (the cost counter on meta),
+                   bound and kernel ms (CUDA-graph replay, median of 5)
+ 20. kernels       one JSON line describing the six kernels: `launches` is
                    the wrappers' count over the main path's run (eager
                    launches and launches recorded into graphs at capture),
                    `replayed_launches` the launches the main path's graph
@@ -197,8 +221,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402  (H100 SXM, NVIDIA data sheet)
 from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_PER_S  # noqa: E402  (the scans' f32 work)
+from repro_torch.launch.micro import bound_ms, graph_ms  # noqa: E402  (CUDA-graph timer, the card's bound)
 ARCH = "qwen3-14b"
 SEED = 0
 # bf16: kernel and plain version both compute in f32 and round the result to
@@ -209,7 +234,6 @@ SEED = 0
 BF16_RTOL = 2.0**-6
 BF16_ATOL = 1e-4
 F32_TOL = 1e-4     # atol = rtol: f32 sums taken in another order than the plain version's einsum
-TF32_FLOP_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): the scans' f32 work
 # the reference kernel tests' own tolerances (tests/test_kernels.py:104,141),
 # atol = rtol: kernel and plain version do the same f32 operations, the
 # cumulative log-decay in the same order, the other sums in another order
@@ -227,41 +251,6 @@ MIN_TOKEN_AGREEMENT = 7 / 8  # a near-tie may flip one argmax
 def line(phase: str, **kv) -> None:
     body = " ".join(f"{k}={v}" for k, v in kv.items())
     print(f"[{phase}] {body}", flush=True)
-
-
-def time_ms(fn, iters: int, reps: int = 5) -> float:
-    """Device time per call: ``iters`` calls captured in one CUDA graph, the
-    graph replayed ``reps`` times between CUDA events; the median per call.
-    Replayed, the kernels run back to back, so the host's launch overhead
-    (larger than a microsecond kernel) is not in the number.  Inputs stay in
-    the 50 MB L2 between calls at the serve shapes, as the serve path
-    leaves the K/V it has just written."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    del graph
-    torch.cuda.empty_cache()
-    return statistics.median(times)
-
-
-def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_err(a, b) -> float:
@@ -356,10 +345,10 @@ def phase_flash():
     rec["max_abs_err"], share = assert_bf16("flash main", out, ref)
     out32 = flash_attention(q.float(), k.float(), v.float(), causal=True)
     err32, _ = assert_close("flash main f32", out32, flash_attention_plain(q.float(), k.float(), v.float()), F32_TOL)
-    rec["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True), 200)
-    rec["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, True, 0), 50)
+    rec["ms"] = graph_ms(lambda: flash_attention(q, k, v, causal=True), 200)
+    rec["plain_ms"] = graph_ms(lambda: flash_attention_plain(q, k, v, True, 0), 50)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    rec["library_ms"] = time_ms(
+    rec["library_ms"] = graph_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 200)
     rec["bound_ms"], rec["bound_by"] = _flash_bound(B, S, S, H, KVH, D, 0)
     line("flash", case="main B1 S128 H40 KVH8 D128 bf16", max_abs_err=f"{rec['max_abs_err']:.3e}",
@@ -379,9 +368,9 @@ def phase_flash():
     boundz = _flash_bound(B, S, S, Hz, KVHz, Dz, 0)
     line("flash", case=f"zamba2 B{B} S{S} H{Hz} KVH{KVHz} D{Dz} bf16", max_abs_err=f"{errz:.3e}", tol=BF16_LIMIT,
          of_limit=f"{sharez:.3f}", f32_err=f"{errz32:.3e}", f32_tol=F32_TOL,
-         kernel_ms=f"{time_ms(lambda: flash_attention(qz, kz, vz, causal=True), 200):.5f}",
-         plain_ms=f"{time_ms(lambda: flash_attention_plain(qz, kz, vz, True, 0), 50):.5f}",
-         library_ms=f"{time_ms(lambda: F.scaled_dot_product_attention(qzt, kzt, vzt, is_causal=True), 200):.5f}",
+         kernel_ms=f"{graph_ms(lambda: flash_attention(qz, kz, vz, causal=True), 200):.5f}",
+         plain_ms=f"{graph_ms(lambda: flash_attention_plain(qz, kz, vz, True, 0), 50):.5f}",
+         library_ms=f"{graph_ms(lambda: F.scaled_dot_product_attention(qzt, kzt, vzt, is_causal=True), 200):.5f}",
          bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
 
     # olmoe-1b-7b, minicpm3-4b (MLA) and glm4-9b (G 16): their 128-token prompts
@@ -396,9 +385,9 @@ def phase_flash():
         qmt, kmt, vmt = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
         boundm = _flash_bound(B, S, S, Hm, KVHm, Dm, 0, Dv=Dvm)
         rec[label] = {"shape": f"B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} causal bf16", "max_abs_err": errm,
-                      "ms": time_ms(lambda: flash_attention(qm, km, vm, causal=True), 200),
-                      "plain_ms": time_ms(lambda: flash_attention_plain(qm, km, vm, True, 0), 50),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                      "ms": graph_ms(lambda: flash_attention(qm, km, vm, causal=True), 200),
+                      "plain_ms": graph_ms(lambda: flash_attention_plain(qm, km, vm, True, 0), 50),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                           qmt, kmt, vmt, is_causal=True, enable_gqa=Hm != KVHm), 200),
                       "bound_ms": boundm[0], "bound_by": boundm[1]}
         line("flash", case=f"{label} B{B} S{S} H{Hm} KVH{KVHm} D{Dm} Dv{Dvm} bf16", max_abs_err=f"{errm:.3e}",
@@ -435,10 +424,10 @@ def phase_flash():
     errL, shareL = assert_bf16("flash S4096", flash_attention(qL, kL, vL, causal=True),
                         flash_attention_plain(qL, kL, vL, True, 0))
     large = {"shape": "B1 S4096 H40 KVH8 D128 bf16", "max_abs_err": errL}
-    large["ms"] = time_ms(lambda: flash_attention(qL, kL, vL, causal=True), 5, reps=3)
-    large["plain_ms"] = time_ms(lambda: flash_attention_plain(qL, kL, vL, True, 0), 2, reps=3)
+    large["ms"] = graph_ms(lambda: flash_attention(qL, kL, vL, causal=True), 5, reps=3)
+    large["plain_ms"] = graph_ms(lambda: flash_attention_plain(qL, kL, vL, True, 0), 2, reps=3)
     qLt, kLt, vLt = qL.transpose(1, 2), kL.transpose(1, 2), vL.transpose(1, 2)
-    large["library_ms"] = time_ms(
+    large["library_ms"] = graph_ms(
         lambda: F.scaled_dot_product_attention(qLt, kLt, vLt, is_causal=True, enable_gqa=True), 5, reps=3)
     large["bound_ms"], large["bound_by"] = _flash_bound(1, SL, SL, H, KVH, D, 0)
     rec["large"] = large
@@ -458,9 +447,9 @@ def phase_flash():
         qlt, klt, vlt = ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2)
         boundl = _flash_bound(1, SL, SL, Hl, KVHl, Dl, 0, Dv=Dvl)
         rec[label] = {"shape": f"B1 S{SL} H{Hl} KVH{KVHl} D{Dl} Dv{Dvl} causal bf16", "max_abs_err": errl,
-                      "ms": time_ms(lambda: flash_attention(ql, kl, vl, causal=True), 5, reps=3),
-                      "plain_ms": time_ms(lambda: flash_attention_plain(ql, kl, vl, True, 0), 2, reps=3),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qlt, klt, vlt, is_causal=True),
+                      "ms": graph_ms(lambda: flash_attention(ql, kl, vl, causal=True), 5, reps=3),
+                      "plain_ms": graph_ms(lambda: flash_attention_plain(ql, kl, vl, True, 0), 2, reps=3),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qlt, klt, vlt, is_causal=True),
                                             5, reps=3),
                       "bound_ms": boundl[0], "bound_by": boundl[1]}
         line("flash", case=rec[label]["shape"], max_abs_err=f"{errl:.3e}", tol=BF16_LIMIT, of_limit=f"{sharel:.3f}",
@@ -483,9 +472,9 @@ def phase_flash():
         qwt, kwt, vwt = qw.transpose(1, 2), kw.transpose(1, 2), vw.transpose(1, 2)
         boundw = _flash_bound(1, Sqw, Tw, Hw, Hw, Dw, 0, causal=False)
         rec[label] = {"shape": f"B1 Sq{Sqw} Skv{Tw} H{Hw} KVH{Hw} D{Dw} non-causal bf16", "max_abs_err": errw,
-                      "ms": time_ms(lambda: flash_attention_full(qw, kw, vw), 50),
-                      "plain_ms": time_ms(lambda: flash_attention_plain(qw, kw, vw, False, 0), 5, reps=3),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qwt, kwt, vwt), 50),
+                      "ms": graph_ms(lambda: flash_attention_full(qw, kw, vw), 50),
+                      "plain_ms": graph_ms(lambda: flash_attention_plain(qw, kw, vw, False, 0), 5, reps=3),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qwt, kwt, vwt), 50),
                       "bound_ms": boundw[0], "bound_by": boundw[1]}
         line("flash", case=rec[label]["shape"], max_abs_err=f"{errw:.3e}", tol=BF16_LIMIT, of_limit=f"{sharew:.3f}",
              f32_err=f"{errw32:.3e}", f32_tol=F32_TOL, kernel_ms=f"{rec[label]['ms']:.5f}",
@@ -544,11 +533,11 @@ def phase_paged_decode():
     lens = torch.tensor([136], dtype=torch.int32, device=dev)
     err32, _ = assert_close("paged_decode f32", paged_decode(q.float(), kp.float(), vp.float(), tables, lens),
                          paged_decode_ref(q.float(), kp.float(), vp.float(), tables, lens), F32_TOL)
-    rec["ms"] = time_ms(lambda: paged_decode(q, kp, vp, tables, lens), 200)
-    rec["plain_ms"] = time_ms(lambda: paged_decode_ref(q, kp, vp, tables, lens), 50)
+    rec["ms"] = graph_ms(lambda: paged_decode(q, kp, vp, tables, lens), 200)
+    rec["plain_ms"] = graph_ms(lambda: paged_decode_ref(q, kp, vp, tables, lens), 50)
     sq, sk, sv, _ = _dense_sdpa_inputs(q, kp, vp, tables, lens)
     sk, sv = sk[:, :, :136].contiguous(), sv[:, :, :136].contiguous()
-    rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True), 200)
+    rec["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True), 200)
     rec["bound_ms"], rec["bound_by"] = _decode_bound(1, H, KVH, D, 136, NB)
     line("paged_decode", case="main B1 H40 KVH8 D128 page16 kv_len129..136 bf16",
          max_abs_err=f"{rec['max_abs_err']:.3e}", tol=BF16_LIMIT, of_limit=f"{share:.3f}",
@@ -577,9 +566,9 @@ def phase_paged_decode():
         sk, sv = sk[:, :, :136].contiguous(), sv[:, :, :136].contiguous()
         boundz = _decode_bound(1, Hz, KVHz, Dz, 136, NB)
         rec[label] = {"shape": f"B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len136 bf16", "max_abs_err": errz,
-                      "ms": time_ms(lambda: paged_decode(qz, kpz, vpz, tables, lens), 200),
-                      "plain_ms": time_ms(lambda: paged_decode_ref(qz, kpz, vpz, tables, lens), 50),
-                      "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                      "ms": graph_ms(lambda: paged_decode(qz, kpz, vpz, tables, lens), 200),
+                      "plain_ms": graph_ms(lambda: paged_decode_ref(qz, kpz, vpz, tables, lens), 50),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv,
                                                                                    enable_gqa=Hz != KVHz), 200),
                       "bound_ms": boundz[0], "bound_by": boundz[1]}
         line("paged_decode", case=f"{label} B1 H{Hz} KVH{KVHz} D{Dz} page16 kv_len129..136 bf16",
@@ -606,9 +595,9 @@ def phase_paged_decode():
     boundw = _decode_bound(1, Hw, Hw, Dw, Tw, NBw)
     rec["whisper_cross"] = {"shape": f"B1 H{Hw} KVH{Hw} D{Dw} page16 kv_len{Tw} over {NBw} pages bf16",
                             "max_abs_err": errw,
-                            "ms": time_ms(lambda: paged_decode(qw, kpw, vpw, tabw, lensw), 200),
-                            "plain_ms": time_ms(lambda: paged_decode_ref(qw, kpw, vpw, tabw, lensw), 50),
-                            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200),
+                            "ms": graph_ms(lambda: paged_decode(qw, kpw, vpw, tabw, lensw), 200),
+                            "plain_ms": graph_ms(lambda: paged_decode_ref(qw, kpw, vpw, tabw, lensw), 50),
+                            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv), 200),
                             "bound_ms": boundw[0], "bound_by": boundw[1]}
     line("paged_decode", case=rec["whisper_cross"]["shape"], max_abs_err=f"{errw:.3e}", tol=BF16_LIMIT,
          of_limit=f"{sharew:.3f}", f32_err=f"{errw32:.3e}", f32_tol=F32_TOL,
@@ -631,10 +620,10 @@ def phase_paged_decode():
         raise AssertionError("paged_decode: a kv_len = 0 row must give zeros")
     lens_sum = int(lensb.sum())
     large = {"shape": "B32 H40 KVH8 D128 page16 kv_len<=4096 shuffled bf16", "max_abs_err": errb}
-    large["ms"] = time_ms(lambda: paged_decode(qb, kpb, vpb, tab, lensb), 50)
-    large["plain_ms"] = time_ms(lambda: paged_decode_ref(qb, kpb, vpb, tab, lensb), 5, reps=3)
+    large["ms"] = graph_ms(lambda: paged_decode(qb, kpb, vpb, tab, lensb), 50)
+    large["plain_ms"] = graph_ms(lambda: paged_decode_ref(qb, kpb, vpb, tab, lensb), 5, reps=3)
     sq, sk, sv, mask = _dense_sdpa_inputs(qb, kpb, vpb, tab, lensb)
-    large["library_ms"] = time_ms(
+    large["library_ms"] = graph_ms(
         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, enable_gqa=True), 50)
     large["bound_ms"], large["bound_by"] = _decode_bound(B, H, KVH, D, lens_sum, NBb)
     rec["large"] = large
@@ -657,9 +646,9 @@ def phase_paged_decode():
     sq, sk, sv, _ = _dense_sdpa_inputs(ql, kpl, vpl, tabl, lensl)
     boundl = _decode_bound(1, H, KVH, D, NBl * page, NBl)
     rec["large_one"] = {"shape": f"B1 H{H} KVH{KVH} D{D} page16 kv_len{NBl * page} shuffled bf16", "max_abs_err": errl,
-                        "ms": time_ms(lambda: paged_decode(ql, kpl, vpl, tabl, lensl), 200),
-                        "plain_ms": time_ms(lambda: paged_decode_ref(ql, kpl, vpl, tabl, lensl), 20),
-                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True), 200),
+                        "ms": graph_ms(lambda: paged_decode(ql, kpl, vpl, tabl, lensl), 200),
+                        "plain_ms": graph_ms(lambda: paged_decode_ref(ql, kpl, vpl, tabl, lensl), 20),
+                        "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True), 200),
                         "bound_ms": boundl[0], "bound_by": boundl[1]}
     line("paged_decode", case=rec["large_one"]["shape"], max_abs_err=f"{errl:.3e}", tol=BF16_LIMIT,
          of_limit=f"{sharel:.3f}", kernel_ms=f"{rec['large_one']['ms']:.5f}",
@@ -842,7 +831,8 @@ def phase_decode_check(cfg, params, res, phase="decode-check", table="profile_pr
     kernel path and through the plain attention versions; compare logits
     and argmax tokens.  Also times, warm, one 128-token prefill and the
     8-step decode on each path (host clock, synchronised).  Returns the
-    launches the serve run's graph replays ran (``steps_line``)."""
+    launches the serve run's graph replays ran and the steps' timings
+    (``steps_line``)."""
     import torch
 
     from repro_torch.launch.serve_e2e import greedy_decode
@@ -952,7 +942,8 @@ def steps_line(cfg, params, prompt, graph_tokens, graph_logits, steps, path, fra
     from ``path_steps``) under torch.profiler: its launches per replay,
     gated exact and equal to what its capture recorded, times its replays
     on the main path.  Returns those, the main path's launches on the
-    card, gated exact for the path's prefills and decode steps."""
+    card, gated exact for the path's prefills and decode steps, and the
+    timings above (their keys as printed)."""
     import torch
 
     from repro_torch.launch.serve_e2e import greedy_decode, make_greedy_steps, prefill_inputs
@@ -1042,7 +1033,7 @@ def steps_line(cfg, params, prompt, graph_tokens, graph_logits, steps, path, fra
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"steps {cfg.name}: " + "; ".join(failed))
-    return replayed
+    return replayed, timing
 
 
 def _nonzero(counts):
@@ -1105,8 +1096,8 @@ def phase_wkv():
                case=f"path B{B} S{S} H{H} N{N} chunk{C} model-layout bf16-rkv", clamped_share=f"{clamped:.4f}")
     if clamped <= 0.0:
         raise AssertionError("wkv: the model's decay should hit the chunk-16 clamp in some channels")
-    rec["ms"] = time_ms(lambda: wkv_model(r, k, v, w, u, s0, chunk=C), 100)
-    rec["plain_ms"] = time_ms(lambda: wkv_chunked_plain(r, k, v, w, u, s0, C), 10)
+    rec["ms"] = graph_ms(lambda: wkv_model(r, k, v, w, u, s0, chunk=C), 100)
+    rec["plain_ms"] = graph_ms(lambda: wkv_chunked_plain(r, k, v, w, u, s0, C), 10)
     rec["bound_ms"], rec["bound_by"] = _wkv_bound(B, S, H, N, C, 2)
     line("wkv", case="path timing", kernel_ms=f"{rec['ms']:.5f}", plain_ms=f"{rec['plain_ms']:.5f}",
          library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
@@ -1127,8 +1118,8 @@ def phase_wkv():
     _scan_case("wkv", errL, wkv_model(rL, kL, vL, wL, u, s0, chunk=C), wkv_chunked_plain(rL, kL, vL, wL, u, s0, C),
                WKV_TOL, case=f"long B{B} S{SL} H{H} N{N} chunk{C} bf16-rkv")
     large = {"shape": f"B{B} S{SL} H{H} N{N} chunk{C} bf16 r/k/v", "max_abs_err": errL["max_abs_err"]}
-    large["ms"] = time_ms(lambda: wkv_model(rL, kL, vL, wL, u, s0, chunk=C), 10, reps=3)
-    large["plain_ms"] = time_ms(lambda: wkv_chunked_plain(rL, kL, vL, wL, u, s0, C), 1, reps=3)
+    large["ms"] = graph_ms(lambda: wkv_model(rL, kL, vL, wL, u, s0, chunk=C), 10, reps=3)
+    large["plain_ms"] = graph_ms(lambda: wkv_chunked_plain(rL, kL, vL, wL, u, s0, C), 1, reps=3)
     large["bound_ms"], large["bound_by"] = _wkv_bound(B, SL, H, N, C, 2)
     large["library_ms"] = None
     rec["large"] = large
@@ -1175,8 +1166,8 @@ def phase_ssd():
     ins = inputs(B, S, H, P, N, torch.bfloat16)
     _scan_case("ssd", rec, ssd_chunked(*ins, chunk=C), ssd_chunked_plain(*ins, C), SSD_TOL,
                case=f"path B{B} S{S} H{H} P{P} N{N} chunk{C} bf16-xBC")
-    rec["ms"] = time_ms(lambda: ssd_chunked(*ins, chunk=C), 100)
-    rec["plain_ms"] = time_ms(lambda: ssd_chunked_plain(*ins, C), 5)
+    rec["ms"] = graph_ms(lambda: ssd_chunked(*ins, chunk=C), 100)
+    rec["plain_ms"] = graph_ms(lambda: ssd_chunked_plain(*ins, C), 5)
     rec["bound_ms"], rec["bound_by"] = _ssd_bound(B, S, H, P, N, C, 2)
     line("ssd", case="path timing", kernel_ms=f"{rec['ms']:.5f}", plain_ms=f"{rec['plain_ms']:.5f}",
          library_ms="null", bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
@@ -1196,8 +1187,8 @@ def phase_ssd():
     _scan_case("ssd", errL, ssd_chunked(*lg, chunk=C), ssd_chunked_plain(*lg, C), SSD_TOL,
                case=f"long B{B} S{SL} H{H} P{P} N{N} chunk{C} bf16-xBC")
     large = {"shape": f"B{B} S{SL} H{H} P{P} N{N} chunk{C} bf16 x/B/C", "max_abs_err": errL["max_abs_err"]}
-    large["ms"] = time_ms(lambda: ssd_chunked(*lg, chunk=C), 5, reps=3)
-    large["plain_ms"] = time_ms(lambda: ssd_chunked_plain(*lg, C), 1, reps=3)
+    large["ms"] = graph_ms(lambda: ssd_chunked(*lg, chunk=C), 5, reps=3)
+    large["plain_ms"] = graph_ms(lambda: ssd_chunked_plain(*lg, C), 1, reps=3)
     large["bound_ms"], large["bound_by"] = _ssd_bound(B, SL, H, P, N, C, 2)
     large["library_ms"] = None
     rec["large"] = large
@@ -1529,7 +1520,7 @@ def phase_model(phase: str, seed: int, capture=None):
 
     line(phase, **path_times(cfg, params, prompt, fed, frames))
     profile_prefill(cfg, params, toks, phase=phase, table=f"profile_prefill_{phase}.txt", frames=frames)
-    replayed = steps_line(cfg, params, prompt, tokens, logits, steps, path, frames, eager)
+    replayed, _ = steps_line(cfg, params, prompt, tokens, logits, steps, path, frames, eager)
     captured = capture(cfg, params, toks) if capture is not None else None
     del params, steps, path
     torch.cuda.empty_cache()
@@ -1614,9 +1605,9 @@ def _codec_times(rec_q, rec_d, key, x, out_dtype, iters):
          lambda: torch.mul(q, s, out=out), _codec_bound(T, C, 1, out_bytes)),
     ):
         entry = rec.setdefault(key, {}) if key else rec
-        entry.update(ms=time_ms(fn, iters), plain_ms=time_ms(plain, max(1, iters // 4)),
+        entry.update(ms=graph_ms(fn, iters), plain_ms=graph_ms(plain, max(1, iters // 4)),
                      bound_ms=bound[0], bound_by=bound[1],
-                     library_ms=time_ms(library, iters) if library else None)
+                     library_ms=graph_ms(library, iters) if library else None)
         entry.setdefault("shape", f"{T}x{C} {str(x.dtype).replace('torch.', '')}")
     line("kv_codec", plans=key or "serve block",
          **{f"{name}_{k}": v for name, plan in (("quantize", plan_for_quantize(x)),
@@ -2447,9 +2438,9 @@ def _tp_split(cfg, model: int):
     by = grouped_head_split(cfg.n_kv_heads, G, model)
     parts = []
     for r in range(model):
-        kv = split_range(cfg.n_kv_heads, model, r, "kv") if by == "kvh" else (0, cfg.n_kv_heads)
-        g = (0, G) if by == "kvh" else split_range(G, model, r, "g")
-        f, v = split_range(cfg.d_ff, model, r, "f"), split_range(cfg.vocab_size, model, r, "v")
+        kv = split_range(cfg.n_kv_heads, model, r) if by == "kvh" else (0, cfg.n_kv_heads)
+        g = (0, G) if by == "kvh" else split_range(G, model, r)
+        f, v = split_range(cfg.d_ff, model, r), split_range(cfg.vocab_size, model, r)
         parts.append(f"{(kv[1] - kv[0]) * (g[1] - g[0])}q/{kv[1] - kv[0]}kv,{f[1] - f[0]},{v[1] - v[0]}")
     return by, ";".join(parts)
 
@@ -2553,6 +2544,12 @@ def _tp_rank(rank: int, store: str, root: str):
     from repro_torch.launch import train as launcher
     from repro_torch.launch.mesh import make_smoke_mesh
 
+    # the two ranks and this script's process share the card, and at (b)'s
+    # optimizer step the ranks' f32 temporaries of the 1.56 GB embedding
+    # leave it within 2.4 GB of full: segments that grow in place keep
+    # each rank's reserved-but-unallocated slack (3.4 GB seen) from
+    # tipping it over.  Set before this process's first CUDA call.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=TP_RANKS)
@@ -2646,6 +2643,183 @@ def phase_tensor_parallel():
                              f"{one['losses']} (rtol {TP_LAUNCH_RTOL}), launches {counts}")
 
 
+# -------------------------------------------------------------------- dry run
+DRYRUN_PROMPT, DRYRUN_DECODED = 128, 8  # the serve path's prompt and greedy tokens
+# decode's counted bytes against the bytes a decode step must read: the
+# plain versions read the whole page-rounded cache, in f32 copies, and the
+# activations' ops move little at B 1
+DRYRUN_DECODE_BYTES = (1.0, 1.25)
+DRYRUN_FLOP_RTOL = 0.01  # the counter's matmul FLOPs against torch.profiler's with_flops total
+DRYRUN_PROFILE_LAYERS = 4  # the eager prefill held against torch.profiler: full width, 4 of 40 layers
+DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("glm4-9b", "decode_32k"))  # on (16, 16), in subprocesses
+
+
+def _terms(lowered, cfg, shape):
+    """Roofline terms of a lowered cell in ms, and its counts."""
+    from repro_torch.launch.roofline import extract
+
+    rl, _ = extract(lowered, cfg, shape, 1)
+    return {"flops": rl.flops, "bytes": rl.hbm_bytes, "compute_ms": rl.compute_s * 1e3,
+            "memory_ms": rl.memory_s * 1e3, "collective_ms": rl.collective_s * 1e3, "bottleneck": rl.bottleneck}
+
+
+def _dryrun_line(part, what, terms, measured_ms, measured_from, **kv):
+    line("dryrun", part=part, what=what.replace(" ", "_"), flops=f"{terms['flops']:.4e}",
+         bytes=f"{terms['bytes']:.4e}", compute_ms=f"{terms['compute_ms']:.3f}",
+         memory_ms=f"{terms['memory_ms']:.3f}", collective_ms=f"{terms['collective_ms']:.3f}",
+         bottleneck=terms["bottleneck"], measured_ms=f"{measured_ms:.3f}", measured_from=measured_from,
+         compute_share=f"{terms['compute_ms'] / measured_ms:.4f}",
+         memory_share=f"{terms['memory_ms'] / measured_ms:.4f}", **kv)
+
+
+def _profiler_flops_check():
+    """One eager plain-path prefill of full-width qwen3-14b
+    (DRYRUN_PROFILE_LAYERS layers, B 1, DRYRUN_PROMPT tokens) on the card,
+    counted by the cost counter and by torch.profiler (with_flops): the
+    counter's matmul FLOPs against the profiler's total."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=DRYRUN_PROFILE_LAYERS)
+    params = api.init_params(cfg, SEED, "cuda")
+    toks = torch.arange(DRYRUN_PROMPT, device="cuda")[None] % cfg.vocab_size
+    prefill = api.prefill_fn(cfg, plain_kernels=True)
+
+    def run():
+        with torch.inference_mode():
+            return prefill(params, {"tokens": toks}, api.init_cache(cfg, 1, DRYRUN_PROMPT, "cuda"), 0)
+
+    run()
+    _, counted = cost.count(run)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA], with_flops=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.flops for e in events)
+    matmul = sum(e.flops for e in events if e.key in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm"))
+    gap = abs(counted.matmul_flops - total) / total if total else float("inf")
+    line("dryrun", part="profiler", what=f"eager plain prefill, {cfg.name} at full width, "
+         f"{DRYRUN_PROFILE_LAYERS} of 40 layers, B1 S{DRYRUN_PROMPT}".replace(" ", "_"),
+         counter_matmul_flops=f"{counted.matmul_flops:.6e}", counter_flops=f"{counted.flops:.6e}",
+         profiler_flops=f"{total:.6e}", profiler_matmul_flops=f"{matmul:.6e}", rel_gap=f"{gap:.3e}",
+         rtol=DRYRUN_FLOP_RTOL)
+    del params
+    torch.cuda.empty_cache()
+    if gap > DRYRUN_FLOP_RTOL:
+        raise AssertionError(f"dryrun: the counter's matmul FLOPs {counted.matmul_flops:.6e} are {gap:.3e} from "
+                             f"torch.profiler's {total:.6e} (rtol {DRYRUN_FLOP_RTOL})")
+
+
+def phase_dryrun(train_step_ms: float, serve_times):
+    """The dry run (``launch.steps.lower_cell``: the step traced on meta
+    tensors in this process, no device) beside what the card measured in
+    this run: (a) qwen3-14b's serve-shape prefill (B 1, S 128) and decode
+    (B 1, kv 136) at full width at mesh (1, 1), each roofline term's share
+    of phase serve's graph device ms; (b) the train cell, 8 of 40 layers,
+    B 8 x S 128, against phase train's step ms; the counter against
+    torch.profiler on one eager prefill on the card; (c) two full-width
+    production cells on (16, 16) through ``launch.dryrun`` in
+    subprocesses.  Gates: decode's bytes within DRYRUN_DECODE_BYTES of
+    what a decode step must read (every parameter but the embedding
+    table, whose rows it gathers, and the K/V of the 136 cached tokens);
+    the counter within DRYRUN_FLOP_RTOL of the profiler; each production
+    cell ok with FLOPs and bytes above 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.cost import nbytes
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_flatten
+
+    t0 = time.perf_counter()
+    one = AbstractMesh((1, 1), ("data", "model"))
+    cfg = get_config(ARCH)
+    timing = serve_times
+    kv = DRYRUN_PROMPT + DRYRUN_DECODED
+    prefill = ShapeConfig("serve_prefill", DRYRUN_PROMPT, 1, "prefill")
+    decode = ShapeConfig("serve_decode", kv, 1, "decode")
+    pre = steps.lower_cell(one, cfg, prefill)
+    dec = steps.lower_cell(one, cfg, decode)
+    pre_t, dec_t = _terms(pre, cfg, prefill), _terms(dec, cfg, decode)
+    specs = api.param_specs(cfg)
+    weights = sum(nbytes(t) for t in tree_flatten(specs)[0])
+    kv_bytes = 2 * cfg.n_layers * kv * cfg.n_kv_heads * cfg.d_head * 2
+    must_read = weights - nbytes(specs["embed"]) + kv_bytes
+    ratio = dec_t["bytes"] / must_read
+    _dryrun_line("a", f"{cfg.name} prefill B1 S{DRYRUN_PROMPT} at mesh (1,1)", pre_t,
+                 timing["graph_prefill_device_ms"], "phase_serve_graph_prefill_device_ms",
+                 trace_s=f"{pre.lower_s:.2f}", matmul_flops=f"{pre.totals.matmul_flops:.4e}")
+    _dryrun_line("a", f"{cfg.name} decode B1 kv{kv} at mesh (1,1)", dec_t,
+                 timing["graph_decode_device_ms_per_token"], "phase_serve_graph_decode_device_ms_per_token",
+                 trace_s=f"{dec.lower_s:.2f}", must_read_bytes=f"{must_read:.4e}", bytes_over_must_read=f"{ratio:.4f}",
+                 gate=f"{DRYRUN_DECODE_BYTES[0]}..{DRYRUN_DECODE_BYTES[1]}", weights_gb=f"{weights / 1e9:.2f}",
+                 embed_gb=f"{nbytes(specs['embed']) / 1e9:.2f}")
+
+    train_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    train = ShapeConfig("train_cell", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tr = steps.lower_cell(one, train_cfg, train)
+    _dryrun_line("b", f"{train_cfg.name} train {TRAIN_LAYERS} of 40 layers B{TRAIN_BATCH} S{TRAIN_SEQ} at mesh (1,1), "
+                 "remat and AdamW as lower_cell builds them", _terms(tr, train_cfg, train), train_step_ms,
+                 "phase_train_median_step_ms", trace_s=f"{tr.lower_s:.2f}",
+                 peak_bytes_per_device=tr.memory_analysis()["peak_bytes_per_device"],
+                 note="phase_train_runs_remat_off")
+    _profiler_flops_check()
+
+    failed = []
+    for arch, shape in DRYRUN_CELLS:
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                              "--pods", "1"], capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")), cwd=HERE)
+        print(out.stdout, end="", flush=True)
+        from repro_torch.launch.dryrun import cell_path
+
+        rec = {}
+        if out.returncode == 0 and os.path.exists(cell_path(arch, shape, 1)):
+            with open(cell_path(arch, shape, 1)) as f:
+                rec = json.load(f)
+        line("dryrun", part="c", cell=f"{arch}x{shape}x1pod", record=json.dumps(rec).replace(" ", ""))
+        cost_ = rec.get("cost_analysis", {})
+        if not (rec.get("ok") and cost_.get("flops", 0) > 0 and cost_.get("bytes_accessed", 0) > 0):
+            failed.append(f"{arch} x {shape}: rc {out.returncode}, {out.stderr[-1500:]}")
+    line("dryrun", seconds=f"{time.perf_counter() - t0:.1f}")
+    if not DRYRUN_DECODE_BYTES[0] <= ratio <= DRYRUN_DECODE_BYTES[1]:
+        failed.append(f"decode bytes {dec_t['bytes']:.4e} are {ratio:.4f}x the {must_read:.4e} a step must read")
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
+
+
+def phase_kernels_micro():
+    """``launch/micro.py`` on the card: each kernel at the reference's
+    micro shapes, its bytes by design and its plain version's (the cost
+    counter on meta), its bound and its time (CUDA-graph replay, median of
+    5).  These launches are after the main paths' counts were read.  Gate:
+    every kernel timed, finite and above 0."""
+    import math
+
+    from repro_torch.launch import micro
+
+    t0 = time.perf_counter()
+    recs = micro.run("cuda", seed=SEED, verbose=False)
+    for r in recs:
+        line("kernels-micro", name=r["name"], shape=r["shape"].replace(" ", "_"), dtype=r["dtype"],
+             kernel_bytes=f"{r['kernel_hbm_bytes']:.4e}", oracle_bytes=f"{r['oracle_hbm_bytes']:.4e}",
+             traffic_reduction=f"{r['traffic_reduction']:.1f}", bound_ms=f"{r['bound_ms']:.5f}",
+             bound_by=r["bound_by"], kernel_ms=f"{r['kernel_ms']:.5f}", share_of_bound=f"{r['share_of_bound']:.3f}")
+    line("kernels-micro", seconds=f"{time.perf_counter() - t0:.1f}")
+    bad = [r["name"] for r in recs if not (math.isfinite(r["kernel_ms"]) and r["kernel_ms"] > 0)]
+    if bad:
+        raise AssertionError(f"kernels-micro: no time for {bad}")
+
+
 def kernels_line(recs, counts, replayed):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main path that runs it: the qwen3-14b serve for flash and
@@ -2709,7 +2883,7 @@ def main() -> int:
     wkv = phase_wkv()
     ssd = phase_ssd()
     cfg, params, res, counts = phase_serve(SEED)
-    serve_replayed = phase_decode_check(cfg, params, res)
+    serve_replayed, serve_times = phase_decode_check(cfg, params, res)
     # the KV blocks one 128-token prefill hands to the store, for the codec
     serve_blocks, _ = res["hook"](res["prompt"], 0)
     del params, res  # the steps hold the weights
@@ -2727,6 +2901,8 @@ def main() -> int:
     step_ms = phase_train()
     phase_distributed(step_ms)
     phase_tensor_parallel()
+    phase_dryrun(step_ms, serve_times)
+    phase_kernels_micro()
     path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}

@@ -59,7 +59,7 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
     KVH = k_pages.shape[2]
-    if H % KVH:
+    if (H % KVH) if KVH else H:  # no KV heads only with no heads (an empty part of a split)
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KVH}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B or kv_len.shape != (B,):
         raise ValueError(f"block_tables must be (B, NB) and kv_len (B,), got "
@@ -87,6 +87,8 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len):
 def _launch(q, k_pages, v_pages, block_tables, kv_len):
     global launches
     B, H, D = q.shape
+    if B == 0 or H == 0:  # no sequence, or a rank's empty part of a split over heads
+        return torch.empty_like(q)
     _, page, KVH, _ = k_pages.shape
     G = H // KVH
     NB = block_tables.shape[1]
@@ -102,8 +104,6 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
     if lib.paged_decode_smem_bytes(DTYPE_CODES[q.dtype], G, D) > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D} needs more shared memory than one block has")
     o = torch.empty_like(q)
-    if B == 0:
-        return o
     n_splits, split_len = split_plan(B, KVH, NB * page, _build.sm_count(q.device))
     part_ml = torch.empty((B, KVH, n_splits, G, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((B, KVH, n_splits, G, D), dtype=torch.float32, device=q.device)

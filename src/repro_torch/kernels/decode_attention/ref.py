@@ -18,7 +18,7 @@ def paged_decode_ref(q, k_pages, v_pages, block_tables, kv_len):
     B, H, D = q.shape
     P, page, KVH, _ = k_pages.shape
     NB = block_tables.shape[1]
-    G = H // KVH
+    G = H // KVH if KVH else 0  # no KV heads: a rank's empty part of a split
     idx = block_tables.long()
     k = k_pages[idx].reshape(B, NB * page, KVH, D)
     v = v_pages[idx].reshape(B, NB * page, KVH, D)

@@ -33,7 +33,7 @@ def _check(q, k, v, q_offset: int) -> None:
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     KVH = k.shape[2]
-    if H % KVH:
+    if (H % KVH) if KVH else H:  # no KV heads only with no heads (an empty part of a split)
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KVH}")
     if Sq == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one query and one key")
@@ -81,6 +81,8 @@ def _launch(q, k, v, causal: bool, q_offset: int):
     global launches
     B, Sq, H, D = q.shape
     Skv, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if H == 0:  # a rank's empty part of a split over heads: nothing to launch
+        return torch.empty((B, Sq, 0, Dv), dtype=q.dtype, device=q.device)
     if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"the kernel takes (q/k, v) head dims {HEAD_DIMS}, got {(D, Dv)}")
     vec = 16 // q.element_size()  # the kernel moves tiles in 16-byte loads

@@ -14,7 +14,7 @@ def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
     at absolute position q_offset + i; key j at position j."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
-    G = H // KVH
+    G = H // KVH if KVH else 0  # no KV heads: a rank's empty part of a split
     qg = q.reshape(B, KVH, G, Sq, D).to(F32)
     s = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(F32)) * (D**-0.5)
     if causal:

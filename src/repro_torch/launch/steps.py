@@ -11,23 +11,37 @@ The sharding helpers (``fsdp_axes_for``, ``train_abstract_inputs``,
 ``*_shardings``) resolve each step's input and output shardings from
 ``distributed.sharding`` for any mesh, a ``DeviceMesh`` or an
 ``AbstractMesh``; they read the meta-tensor specs of ``models.api`` and
-``training.optim``.  The reference's ``lower_cell`` (lowering a step under
-its shardings for the dry run) waits for the dry-run slice.  The train step
-stays eager (its device is busy; there is little host time for a graph to
-save).
+``training.optim``.  The train step stays eager (its device is busy; there
+is little host time for a graph to save).
+
+``lower_cell`` is the reference's dry-run lowering: where the reference
+lowers a step under its shardings for a mesh of host devices, the port
+runs the same step once, on ``meta`` tensors, as rank 0 of a fake process
+group of the mesh's size (``launch.mesh.fake_mesh``) under
+``models.common.tensor_parallel``, with the cost counter of
+``launch.cost`` counting every op and collective it dispatches.  No
+device and no CUDA is used: a ``LoweredCell`` is a plan, made where the
+process runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P, NamedSharding
 from ..graphs import CapturedStep, capture  # noqa: F401  (the jit counterpart, with the builders)
 from ..models import api
+from ..models.common import tensor_parallel, tree_leaves
 from ..training import loop, optim
+from . import cost
+from .mesh import CARDS_PER_HOST, fake_mesh
 
 # archs big enough that ZeRO-3 must span the pod axis too (1T params)
 FSDP_POD_ARCHS = {"kimi-k2-1t-a32b"}
@@ -51,19 +65,20 @@ def opt_config_for(cfg: ModelConfig) -> optim.OptimizerConfig:
 
 def _train_cfg(cfg: ModelConfig) -> ModelConfig:
     """remat on; ``seq_shard`` is set as the reference sets it and is a
-    sharding hint the port's models do not read (they have no sharding
-    constraints yet)."""
+    sharding hint the port's models do not read: the residual stream stays
+    whole on every ``model`` rank."""
     return dataclasses.replace(cfg, remat=True, seq_shard=True)
 
 
 # ------------------------------------------------------------------ train
-def build_train_step(cfg: ModelConfig, ocfg: Optional[optim.OptimizerConfig] = None):
+def build_train_step(cfg: ModelConfig, ocfg: Optional[optim.OptimizerConfig] = None, mesh=None):
     """-> (train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), ocfg): ``training/loop.make_train_step`` on the remat config,
-    eager, updating params and state in place."""
+    eager, updating params and state in place; data- and tensor-parallel
+    under ``mesh`` (a ``DeviceMesh``), ``batch`` then the global batch."""
     cfg = _train_cfg(cfg)
     ocfg = ocfg or opt_config_for(cfg)
-    return loop.make_train_step(cfg, ocfg), ocfg
+    return loop.make_train_step(cfg, ocfg, mesh), ocfg
 
 
 def train_abstract_inputs(cfg: ModelConfig, shape: ShapeConfig, ocfg: optim.OptimizerConfig):
@@ -87,15 +102,17 @@ def _logits_sharding(mesh, cfg: ModelConfig, shape: ShapeConfig):
 
 
 # ---------------------------------------------------------------- prefill
-def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig):
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, plain_kernels: bool = False):
     """prefill_step(params, inputs) -> (last-token logits (B, V), cache):
-    a fresh cache of ``shape.seq_len`` slots on the tokens' device,
-    prefilled at 0."""
-    pfn = api.prefill_fn(cfg)
-    B, S = shape.global_batch, shape.seq_len
+    a fresh cache of ``shape.seq_len`` slots for the tokens' B rows (the
+    global batch, or a rank's rows of it) on their device, prefilled at
+    0.  ``plain_kernels`` runs the kernels' plain versions."""
+    pfn = api.prefill_fn(cfg, plain_kernels)
+    S = shape.seq_len
 
     def prefill_step(params, inputs):
-        cache = api.init_cache(cfg, B, S, inputs["tokens"].device)
+        tokens = inputs["tokens"]
+        cache = api.init_cache(cfg, tokens.shape[0], S, tokens.device)
         logits, cache = pfn(params, inputs, cache, 0)
         return logits[:, -1, :], cache
 
@@ -137,3 +154,126 @@ def decode_shardings(mesh, cfg: ModelConfig, shape: ShapeConfig):
     c_sh = shd.cache_shardings(mesh, specs["cache"], cfg)
     pos_sh = NamedSharding(mesh, P())
     return (p_sh, tok_sh, c_sh, pos_sh), (_logits_sharding(mesh, cfg, shape), c_sh)
+
+
+# ------------------------------------------------------------- cell lowering
+@dataclasses.dataclass
+class LoweredCell:
+    """One (arch x shape) step traced as rank 0 of a mesh (``lower_cell``):
+    the port's counterpart of a compiled ``Lowered``.
+
+    ``totals`` are the cost counter's (``launch.cost``) for the step on
+    rank 0.  ``argument_bytes`` are the step's arguments as the sharding
+    rules lay them out on rank 0 (``*_shardings`` at coordinate 0): the
+    reference's ``argument_size_in_bytes``.  ``held_argument_bytes`` are
+    what the port's step holds: every parameter and optimizer leaf whole,
+    the cache's leaves whole but for their batch rows.  ``output_bytes``
+    and ``alias_bytes`` are the outputs and those of them that are
+    arguments updated in place (parameters and optimizer state in a train
+    step, the cache in decode), each in the rules' layout;
+    ``temp_bytes`` the most bytes the step's own storages held at once,
+    less the new outputs'.  ``seq_shard`` is False: the residual stream is
+    never split over sequence."""
+
+    lower_s: float
+    totals: cost.CostTotals
+    argument_bytes: int
+    held_argument_bytes: int
+    output_bytes: int
+    alias_bytes: int
+    temp_bytes: int
+    seq_shard: bool = False
+
+    def memory_analysis(self) -> Dict[str, int]:
+        """The reference's ``memory_analysis`` keys; ``peak_bytes_per_device``
+        by its formula (``launch/dryrun.py``), and ``held_peak_bytes`` by
+        the same formula on the held arguments."""
+        out = {"argument_size_in_bytes": self.argument_bytes, "output_size_in_bytes": self.output_bytes,
+               "temp_size_in_bytes": self.temp_bytes, "alias_size_in_bytes": self.alias_bytes,
+               "generated_code_size_in_bytes": 0}
+        extra = self.output_bytes + self.temp_bytes - self.alias_bytes
+        out["peak_bytes_per_device"] = self.argument_bytes + extra
+        out["held_argument_size_in_bytes"] = self.held_argument_bytes
+        out["held_peak_bytes"] = self.held_argument_bytes + extra
+        return out
+
+
+def _rank0_bytes(shardings, specs) -> int:
+    """Bytes of rank 0's shards (mesh coordinate 0) of a tree of tensors."""
+    total = 0
+    for sh, t in zip(tree_leaves(shardings), tree_leaves(specs)):
+        sl = next(iter(sh.shard_slices(tuple(t.shape)).values()))  # coordinate (0, ..., 0) comes first
+        total += math.prod(len(range(*s.indices(n))) for s, n in zip(sl, t.shape)) * t.element_size()
+    return total
+
+
+def _rank0_rows(sharding, t):
+    """Rank 0's rows (dim 0) of ``t`` under a batch sharding."""
+    return next(iter(sharding.shard_slices(tuple(t.shape)).values()))[0]
+
+
+def _held(trees) -> int:
+    """Bytes of every tensor of a sequence of trees."""
+    return sum(cost.nbytes(t) for tree in trees for t in tree_leaves(tree))
+
+
+def lower_cell(mesh, cfg: ModelConfig, shape: ShapeConfig) -> LoweredCell:
+    """Trace one (arch x shape) cell's step as rank 0 of ``mesh`` (an
+    ``AbstractMesh``, or anything with ``shape`` and ``mesh_dim_names``):
+    the train step of ``build_train_step`` (remat, AdamW at
+    ``opt_config_for``), the prefill of ``build_prefill_step`` or the
+    decode of ``build_decode_step``, each with ``plain_kernels``, on meta
+    tensors under the cost counter, in a fake process group of the mesh's
+    size (``launch.mesh.fake_mesh``) and ``tensor_parallel`` of its mesh.
+    Rank 0 takes its rows of the global batch (all of them where the batch
+    axes do not divide it) and the first part of every split, which is
+    the largest of an uneven one: its counts are the per-device maximum.
+    A mesh of one card runs the one-card train step (no gradient
+    reduction).  Opens and closes this process's default process group."""
+    kind = shape.kind
+    t0 = time.perf_counter()
+    with fake_mesh(mesh) as dm:
+        counter = cost.CostCounter(cost.axes_of(dm), CARDS_PER_HOST)
+        p = api.param_specs(cfg)
+        if kind == "train":
+            step, ocfg = build_train_step(cfg, mesh=dm if dm.size() > 1 else None)
+            tcfg = _train_cfg(cfg)
+            (p_sh, o_sh, b_sh), _ = train_shardings(mesh, tcfg, shape, ocfg)
+            _, o, batch = train_abstract_inputs(tcfg, shape, ocfg)
+            args = (p, o, batch)
+            argument = _rank0_bytes(p_sh, p) + _rank0_bytes(o_sh, o) + _rank0_bytes(b_sh, batch)
+            alias = _rank0_bytes(p_sh, p) + _rank0_bytes(o_sh, o)
+            held = _held(args)
+            with counter:
+                _, _, metrics = step(*args)
+            new = [metrics]
+        elif kind == "prefill":
+            step = build_prefill_step(cfg, shape, plain_kernels=True)
+            (p_sh, in_sh), _ = prefill_shardings(mesh, cfg, shape)
+            specs = api.input_specs(cfg, shape)
+            inputs = {k: v[_rank0_rows(in_sh[k], v)] for k, v in specs.items()}
+            argument = _rank0_bytes(p_sh, p) + _rank0_bytes(in_sh, specs)
+            alias = 0
+            held = _held((p, inputs))
+            with counter, tensor_parallel(dm):
+                new = step(p, inputs)
+        else:
+            step = build_decode_step(cfg, shape, plain_kernels=True)
+            (p_sh, tok_sh, c_sh, pos_sh), _ = decode_shardings(mesh, cfg, shape)
+            specs = api.input_specs(cfg, shape)
+            rows = _rank0_rows(tok_sh, specs["tokens"])
+            tokens = specs["tokens"][rows]
+            cache = {k: v[:, rows] for k, v in specs["cache"].items()}
+            pos = torch.empty((), dtype=torch.int32, device=api.META)
+            argument = (_rank0_bytes(p_sh, p) + _rank0_bytes(tok_sh, specs["tokens"])
+                        + _rank0_bytes(c_sh, specs["cache"]) + _rank0_bytes(pos_sh, pos))
+            alias = _rank0_bytes(c_sh, specs["cache"])
+            held = _held((p, tokens, cache, pos))
+            with counter, tensor_parallel(dm):
+                logits, _ = step(p, tokens, cache, pos)
+            new = [logits]
+        new_bytes = _held(new)
+        return LoweredCell(
+            lower_s=time.perf_counter() - t0, totals=counter.totals,
+            argument_bytes=argument, held_argument_bytes=held, output_bytes=alias + new_bytes,
+            alias_bytes=alias, temp_bytes=max(0, counter.totals.peak_live_bytes - new_bytes))

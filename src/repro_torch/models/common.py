@@ -8,12 +8,13 @@ reference's init schemes.
 The reference's sharding hook is ``constrain`` (``with_sharding_constraint``
 under ``with mesh``, the identity without one): a layout, never another
 function.  Its counterpart here is ``tensor_parallel(mesh)``, which the
-training step enters: under it, with a ``model`` axis over 1, the layers
-at the reference's constrain sites (``layers.py``, ``transformer.py``,
-``encdec.py``) compute their rank's part of the split (heads, the SwiGLU
-hidden dim, experts, the vocabulary) from views of parameters every rank
-holds whole, and join the parts with the two conjugate collectives below,
-so the loss and gradients are one device's.  Without the context, or at a
+training step and a cached forward enter: under it, with a ``model`` axis
+over 1, the layers at the reference's constrain sites (``layers.py``,
+``transformer.py``, ``encdec.py``) compute their rank's part of the split
+(heads, the SwiGLU hidden dim, experts, the vocabulary) from views of
+parameters, and of caches, every rank holds whole, and join the parts with
+the two conjugate collectives below, so the loss and gradients, or the
+logits and caches, are one device's.  Without the context, or at a
 ``model`` size of 1, every layer runs its one-device code unchanged.
 """
 
@@ -211,21 +212,13 @@ def under_current_mesh(fn):
     return run
 
 
-def no_cache_under_tp(cache) -> None:
-    """The prefill and decode with caches under a ``model`` axis over 1,
-    which the reference lowers and never runs, are not ported: a cache
-    raises there."""
-    if cache is not None and current_tp() is not None:
-        raise NotImplementedError("a forward with a cache under a model axis over 1: tensor parallelism "
-                                  "covers the training forward only")
-
-
-def split_range(n: int, parts: int, index: int, what: str) -> Tuple[int, int]:
+def split_range(n: int, parts: int, index: int) -> Tuple[int, int]:
     """[lo, hi) of part ``index`` of ``n`` items cut into ``parts`` runs in
     order, the first ``n % parts`` one longer (an uneven dim takes uneven
-    slices); ``what`` names the dim when a part would be empty."""
-    if n < parts:
-        raise ValueError(f"{what}: {n} cannot split {parts} ways over the model axis")
+    slices).  Where ``n < parts``, parts ``0 .. n-1`` take one item each and
+    the rest an empty range: every consumer runs on an empty part, whose
+    contribution to ``reduce_from_model`` is zero.  The largest part is
+    ``ceil(n / parts)``, what the reference's GSPMD padding gives a device."""
     q, r = divmod(n, parts)
     lo = index * q + min(index, r)
     return lo, lo + q + (index < r)

@@ -11,12 +11,13 @@ cross-attention through the paged decode kernel over the cross cache,
 kv_len = enc_frames.  Layers are stacked on a leading L axis, as in the
 reference, and driven by a Python loop in place of ``lax.scan``.
 
-Under ``common.tensor_parallel`` with a ``model`` axis over 1 (training)
-the encoder's and decoder's attention and MLP split as in ``layers.py``,
-cross-attention over the same heads (``layers.gqa_shard``: the queries of
-this rank's heads against the K/V of its KV heads, built from the memory
-entering through ``copy_to_model``), and the logits and the loss over the
-vocabulary as in ``transformer.py``.  The reference's batch-only
+Under ``common.tensor_parallel`` with a ``model`` axis over 1 (training,
+prefill and decode) the encoder's and decoder's attention and MLP split as
+in ``layers.py``, cross-attention over the same heads (``layers.gqa_shard``:
+the queries of this rank's heads against the K/V of its KV heads, built
+from the memory entering through ``copy_to_model``), the self and cross
+caches, held whole, through views of this rank's KV heads, and the logits
+and the loss over the vocabulary as in ``transformer.py``.  The reference's batch-only
 constraints (``encdec.py:109,147,160``) are the layout the port has.
 """
 
@@ -27,9 +28,9 @@ from typing import Dict, Optional
 
 import torch
 
-from .common import Spec, copy_to_model, current_tp, no_cache_under_tp, reduce_from_model, tree_init
+from .common import Spec, copy_to_model, current_tp, reduce_from_model, tree_init
 from .layers import (F32, decode_over_cache, attend, build_gqa_template, build_mlp_template, decode_index,
-                     gqa_attention, gqa_shard, rms_norm, swiglu_mlp)
+                     gqa_attention, gqa_heads, gqa_shard, kv_head_view, rms_norm, swiglu_mlp)
 from .transformer import (cache_len, check_pos, checkpointed, embed_tokens, stacked, token_cross_entropy, unstack,
                           vocab_logits)
 
@@ -116,9 +117,14 @@ def cross_decode(p, cfg, x, ck, cv, index, plain_kernels: bool = False):
     """One decoder token per sequence, x (B,1,D), against the cross cache
     ck/cv (B, cache_len(T), KVH, Dh) viewed as pages; ``index`` =
     ``decode_index(B, cache_len(T), T)``, so the pad slots past T are
-    masked."""
-    out = decode_over_cache(_cross_queries(p, cfg, x), ck, cv, index, plain_kernels)
-    return _cross_out(p, cfg, out)
+    masked.  Under a tensor-parallel context: this rank's query heads
+    against ``ck``/``cv``, the view of its KV heads, summed over
+    ``model`` after ``wo``."""
+    tp = current_tp()
+    if tp is not None:
+        p, x = gqa_shard(p, cfg, tp), copy_to_model(x, tp)
+    out = _cross_out(p, cfg, decode_over_cache(_cross_queries(p, cfg, x), ck, cv, index, plain_kernels))
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 # ---------------------------------------------------------------- encoder
@@ -170,11 +176,13 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
     cache, whose length must then be enc_frames; without it (decode), the
     cross cache is read, by the paged decode kernel when S == 1.  A decode
     step's ``pos`` may be a 0-d integer tensor on the model's device
-    (``transformer.lm_forward``).  Under a tensor-parallel context
-    (training only) the logits are this rank's vocabulary columns."""
+    (``transformer.lm_forward``).  Under a tensor-parallel context the
+    logits are this rank's vocabulary columns, and the cross cache is read
+    and written through the view of this rank's KV heads
+    (``layers.gqa_heads``; the self cache's view is taken in
+    ``layers.gqa_attention``)."""
     B, S = tokens.shape
     check_pos(pos, S, cache)
-    no_cache_under_tp(cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
@@ -189,6 +197,11 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
         if memory is None:
             cross_index = decode_index(B, cache["cross_k"].shape[2], T, dev)
 
+    tp = current_tp()
+
+    def cross_cache(name, i):
+        return cache[name][i] if tp is None else kv_head_view(cache[name][i], gqa_heads(cfg, tp)[0])
+
     def dec_block(x, bp, i):
         self_cache = None if cache is None else (cache["self_k"][i], cache["self_v"][i], pos)
         h, _ = gqa_attention(bp["self_attn"], cfg, rms_norm(x, bp["self_norm"]), positions, self_cache,
@@ -198,15 +211,15 @@ def decode_forward(params, cfg, tokens, memory=None, pos: int = 0, cache: Option
         if memory is not None:
             mk, mv = cross_kv(bp["cross"], memory, cfg)
             if cache is not None:  # prefill: (re)write the cross cache
-                cache["cross_k"][i][:, :T].copy_(mk)
-                cache["cross_v"][i][:, :T].copy_(mv)
+                cross_cache("cross_k", i)[:, :T].copy_(mk)
+                cross_cache("cross_v", i)[:, :T].copy_(mv)
             x = x + cross_attention(bp["cross"], cfg, hx, mk, mv, plain_kernels)
         elif cross_index is not None:
-            x = x + cross_decode(bp["cross"], cfg, hx, cache["cross_k"][i], cache["cross_v"][i], cross_index,
-                                 plain_kernels)
+            x = x + cross_decode(bp["cross"], cfg, hx, cross_cache("cross_k", i), cross_cache("cross_v", i),
+                                 cross_index, plain_kernels)
         else:
-            x = x + cross_attention(bp["cross"], cfg, hx, cache["cross_k"][i][:, :T], cache["cross_v"][i][:, :T],
-                                    plain_kernels)
+            x = x + cross_attention(bp["cross"], cfg, hx, cross_cache("cross_k", i)[:, :T],
+                                    cross_cache("cross_v", i)[:, :T], plain_kernels)
         return x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
 
     block = checkpointed(dec_block, cfg.remat and cache is None)

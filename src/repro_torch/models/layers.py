@@ -16,15 +16,19 @@ as in the reference, and launches nothing.  The MoE's expert products
 are batched matmuls, which the reference also leaves outside any kernel.
 
 Under ``common.tensor_parallel`` with a ``model`` axis over 1 (the
-training forward: the models' entry points refuse a cache), the layers split at the reference's constrain
-sites: GQA attention over KV heads or query groups
-(``common.grouped_head_split``), MLA attention over heads, the SwiGLU
-hidden dim, and the MoE's experts.  Each rank takes views of its columns
-and rows of parameters it holds whole; the replicated input enters
-through ``copy_to_model`` and the partial output leaves through
+training forward, and prefill and decode with a cache), the layers split
+at the reference's constrain sites: GQA attention over KV heads or query
+groups (``common.grouped_head_split``), MLA attention over heads, the
+SwiGLU hidden dim, and the MoE's experts.  Each rank takes views of its
+columns and rows of parameters it holds whole; the replicated input
+enters through ``copy_to_model`` and the partial output leaves through
 ``reduce_from_model``.  Parameters the rules keep whole but that act on
 the split (the QK-norm scales) enter through ``copy_to_model`` too, so
-their gradients come out whole on every rank.
+their gradients come out whole on every rank.  A GQA cache, held whole
+on every rank, is read and written through a view of the rank's KV heads
+(every KV head where the split is over query groups); MLA's latent cache
+is whole on every rank.  A split wider than its dim leaves some ranks an
+empty part (``common.split_range``), which every layer runs through.
 """
 
 from __future__ import annotations
@@ -128,7 +132,9 @@ def write_cache(buf, new, pos) -> None:
 def attend(q, k, v, causal: bool, q_offset: int, plain: bool):
     """Flash attention in model layout: causal through ``flash_attention``,
     non-causal through ``flash_attention_full`` (every key visible, any key
-    count); ``plain`` runs the plain version instead."""
+    count); ``plain`` runs the plain version instead.  A rank's empty part
+    of a split (no heads) takes the same route: on the card the wrappers
+    return an empty output without a launch."""
     if plain:
         return flash_attention_plain(q, k, v, causal, q_offset)
     if causal:
@@ -156,19 +162,32 @@ def take_heads(w, dim: int, kvh: int, g: int, dh: int, kv: Tuple[int, int], gs: 
     return w.flatten(dim, dim + 2)
 
 
-def gqa_shard(p, cfg, tp):
-    """This model rank's part of a GQA (or cross-attention) layer: the q, k
-    and v columns and ``wo`` rows of its heads, split over KV heads or over
-    the query groups of every KV head (``common.grouped_head_split``, in
-    uneven slices where ``model`` divides neither), ``qkv_bias`` following
-    its heads and the QK-norm scales whole through ``copy_to_model``."""
-    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    G = H // KVH
+def gqa_heads(cfg, tp):
+    """(KV heads [lo, hi), query groups [lo, hi)) of this model rank's part
+    of a GQA layer: split over KV heads or over the query groups of every
+    KV head (``common.grouped_head_split``, in uneven slices, some empty,
+    where ``model`` divides neither)."""
+    KVH = cfg.n_kv_heads
+    G = cfg.n_heads // KVH
     m, r = tp.model_size, tp.model_rank
     if grouped_head_split(KVH, G, m) == "kvh":
-        kv, gs = split_range(KVH, m, r, f"{cfg.name}'s KV heads"), (0, G)
-    else:
-        kv, gs = (0, KVH), split_range(G, m, r, f"{cfg.name}'s query groups")
+        return split_range(KVH, m, r), (0, G)
+    return (0, KVH), split_range(G, m, r)
+
+
+def kv_head_view(buf, kv: Tuple[int, int]):
+    """The KV heads [kv) of a cache leaf (B, S, KVH, Dh), as a view."""
+    return buf[:, :, kv[0]:kv[1]]
+
+
+def gqa_shard(p, cfg, tp):
+    """This model rank's part of a GQA (or cross-attention) layer: the q, k
+    and v columns and ``wo`` rows of its heads (``gqa_heads``),
+    ``qkv_bias`` following its heads and the QK-norm scales whole through
+    ``copy_to_model``."""
+    H, KVH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KVH
+    kv, gs = gqa_heads(cfg, tp)
     out = {}
     for name, w in p.items():
         if name in ("q_norm", "k_norm"):
@@ -193,12 +212,16 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     int or a 0-d tensor) the paged decode kernel with ``index`` =
     ``decode_index(B, S_max, pos + 1)`` (built here when the caller passes
     none).  Under a tensor-parallel context: this rank's heads
-    (``gqa_shard``), summed over ``model`` after ``wo``."""
+    (``gqa_shard``), summed over ``model`` after ``wo``, and of the cache
+    (held whole) the view of its KV heads (``gqa_heads``)."""
     B, S, D = x.shape
     Dh = cfg.d_head
     tp = current_tp()
     if tp is not None:
         p, x = gqa_shard(p, cfg, tp), copy_to_model(x, tp)
+        if cache is not None:
+            kv = gqa_heads(cfg, tp)[0]
+            cache = (kv_head_view(cache[0], kv), kv_head_view(cache[1], kv), cache[2])
     H, KVH = p["wo"].shape[0] // Dh, p["wk"].shape[-1] // Dh
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
@@ -308,7 +331,7 @@ def mla_shard(p, cfg, tp):
     ``wv_b`` columns and ``wo`` rows; the latent projections and their
     norms stay whole (they run before the split)."""
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    hs = split_range(H, tp.model_size, tp.model_rank, f"{cfg.name}'s heads")
+    hs = split_range(H, tp.model_size, tp.model_rank)
     per = {"wq_b": dn + dr, "wk_b": dn, "wv_b": dv, "wo": dv}
     return {name: take_heads(w, 0 if name == "wo" else -1, H, 1, per[name], hs, (0, 1)) if name in per else w
             for name, w in p.items()}
@@ -326,9 +349,9 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     dn+dr, v head dim dv; S == 1 with a cache takes the absorbed path over
     every S_max slot with kv_len = pos + 1 masking the rest, as the
     reference does, so ``pos`` may there be a 0-d tensor.  Under a
-    tensor-parallel context (training): this rank's heads (``mla_shard``),
-    the latent entering the split through ``copy_to_model``, summed over
-    ``model`` after ``wo``."""
+    tensor-parallel context: this rank's heads (``mla_shard``), the latent
+    entering the split through ``copy_to_model``, summed over ``model``
+    after ``wo``; every rank writes the whole latent into its whole cache."""
     B, S, _ = x.shape
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     tp = current_tp()
@@ -378,7 +401,7 @@ def swiglu_mlp(p, x):
     ``model``."""
     tp = current_tp()
     if tp is not None:
-        lo, hi = split_range(p["w_down"].shape[0], tp.model_size, tp.model_rank, "the SwiGLU hidden dim")
+        lo, hi = split_range(p["w_down"].shape[0], tp.model_size, tp.model_rank)
         p = {"w_gate": p["w_gate"][:, lo:hi], "w_up": p["w_up"][:, lo:hi], "w_down": p["w_down"][lo:hi]}
         x = copy_to_model(x, tp)
     h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
@@ -453,7 +476,7 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     tp = current_tp()
     e0, El = 0, E  # this rank's experts [e0, e0 + El)
     if tp is not None:
-        e0, e1 = split_range(E, tp.model_size, tp.model_rank, f"{cfg.name}'s experts")
+        e0, e1 = split_range(E, tp.model_size, tp.model_rank)
         El = e1 - e0
         p = {n: p[n][e0:e1] for n in ("w_gate", "w_up", "w_down")}
         x, gate_w = copy_to_model(x, tp), copy_to_model(gate_w, tp)
@@ -484,8 +507,11 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     if tp is not None:
         valid = valid & (sorted_e >= e0) & (sorted_e < e0 + El)
         sorted_e = sorted_e - e0
-    flat_pos = torch.clamp(sorted_e * C + torch.where(valid, pos_in_e, 0), 0, El * C - 1)
-    picked_sorted = _take_rows(y.reshape(B, El * C, D), flat_pos)
+    if El:
+        flat_pos = torch.clamp(sorted_e * C + torch.where(valid, pos_in_e, 0), 0, El * C - 1)
+        picked_sorted = _take_rows(y.reshape(B, El * C, D), flat_pos)
+    else:  # no experts on this rank: zero rows, kept on the autograd graph
+        picked_sorted = y.reshape(B, 0, D).sum(1, keepdim=True).expand(B, S * k, D)
     w_sorted = torch.gather(gate_w.reshape(B, S * k), 1, order)
     picked_sorted = picked_sorted * (w_sorted * valid)[..., None].to(y.dtype)
     inv_order = torch.argsort(order, dim=-1)

@@ -5,12 +5,13 @@ loss.  Layers are stacked on a leading L axis, as in the reference, and
 driven by a Python loop in place of ``lax.scan``.  The encdec family
 (Whisper) is assembled in ``models/encdec.py``.
 
-Under ``common.tensor_parallel`` with a ``model`` axis over 1 the training
-forward splits where the reference constrains: the layers' sites
-(``layers.py``), and the logits over the vocabulary (``lm_head`` columns,
-uneven where ``model`` does not divide V), with the cross-entropy taken
-over the split vocabulary.  The embedding's gather, rwkv6's blocks and
-the hybrid's Mamba-2 blocks have no site and run whole on every rank.  The
+Under ``common.tensor_parallel`` with a ``model`` axis over 1 the forward,
+with or without a cache, splits where the reference constrains: the
+layers' sites (``layers.py``), and the logits over the vocabulary
+(``lm_head`` columns, uneven where ``model`` does not divide V), with the
+cross-entropy taken over the split vocabulary.  The embedding's gather, rwkv6's
+blocks and the hybrid's Mamba-2 blocks have no site and run whole on every
+rank, their recurrent states whole in every rank's cache.  The
 reference's ``cfg.seq_shard`` (the residual stream split over sequence
 between blocks) is a layout only: here the residual stream stays whole on
 every model rank.
@@ -25,8 +26,8 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
-from .common import (Spec, copy_to_model, current_tp, mean_over_batch, no_cache_under_tp, reduce_from_model,
-                     split_range, tree_init, under_current_mesh)
+from .common import (Spec, copy_to_model, current_tp, mean_over_batch, reduce_from_model, split_range, tree_init,
+                     under_current_mesh)
 from .layers import (F32, PAGE, build_gqa_template, build_mla_template, build_mlp_template,
                      build_moe_template, decode_index, gqa_attention, mla_attention, moe_layer,
                      rms_norm, swiglu_mlp)
@@ -201,15 +202,15 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     mean-prob balance proxy n_experts·Σ me², me = probs.mean(0) (zero for
     the other families).  MoE runs dropless whenever a cache is passed.
 
-    Under a tensor-parallel context (``common.tensor_parallel``; training
-    only, a cache raises) the logits are this rank's vocabulary columns
-    (``vocab_logits``), and each moe layer's ``me`` is the mean over the
-    batch axes' ranks (``common.mean_over_batch``): the reference's term
-    over the global batch."""
+    Under a tensor-parallel context (``common.tensor_parallel``) the logits
+    are this rank's vocabulary columns (``vocab_logits``), a cache is read
+    and written through views of this rank's heads (``layers.py``), and
+    each moe layer's ``me`` is the mean over the batch axes' ranks
+    (``common.mean_over_batch``): the reference's term over the global
+    batch."""
     require_ported(cfg)
     B, S = tokens.shape
     check_pos(pos, S, cache)
-    no_cache_under_tp(cache)
     x = embed_tokens(params["embed"], tokens)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
@@ -301,7 +302,7 @@ def vocab_logits(x, w):
     tp = current_tp()
     if tp is None:
         return torch.matmul(x, w)
-    lo, hi = split_range(w.shape[1], tp.model_size, tp.model_rank, "the vocabulary")
+    lo, hi = split_range(w.shape[1], tp.model_size, tp.model_rank)
     return torch.matmul(copy_to_model(x, tp), w[:, lo:hi])
 
 
@@ -329,9 +330,9 @@ def split_log_prob(logits, labels, vocab_size: int, tp):
     on it), and the sum of exponentials and the label's logit (which only
     the rank owning the label holds; the others add 0) summed over
     ``model`` in f32 (``reduce_from_model``)."""
-    lo, hi = split_range(vocab_size, tp.model_size, tp.model_rank, "the vocabulary")
+    lo, hi = split_range(vocab_size, tp.model_size, tp.model_rank)
     z = logits.to(F32)
-    m = z.detach().amax(dim=-1)
+    m = z.detach().amax(dim=-1) if hi > lo else z.new_full(z.shape[:-1], -torch.inf)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.model_group)
     sum_exp = reduce_from_model(torch.exp(z - m[..., None]).sum(dim=-1), tp)
     own = (labels >= lo) & (labels < hi)

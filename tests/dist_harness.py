@@ -239,12 +239,14 @@ def dp_steps(cfg, steps: int, mesh=None, eps: float = 1e-8):
 # the tensor-parallel cases: (arch, overrides of its smoke config).  The
 # smoke configs have H 4 and KVH 2, so attention splits over query groups
 # at model 2; the overrides add the split over KV heads, uneven heads
-# (KVH 3, G 1), hidden dim (127) and experts (3), qkv biases, odd
-# vocabularies and activation checkpointing
+# (KVH 3, G 1; KVH 2, G 3), hidden dim (127) and experts (3), qkv biases,
+# odd vocabularies and activation checkpointing.  At model 4 the uneven
+# cases leave a rank an empty part: no KV head, no query group, no expert
 TP_CASES = {
     "dense": ("qwen3-14b", {}),
     "dense_kvh": ("qwen3-14b", {"n_kv_heads": 4}),
     "dense_uneven": ("qwen3-14b", {"n_heads": 3, "n_kv_heads": 3, "d_ff": 127}),
+    "dense_groups": ("qwen3-14b", {"n_heads": 6, "n_kv_heads": 2}),
     "bias": ("qwen2.5-32b", {}),
     "odd_vocab": ("qwen3-14b", {"vocab_size": 255}),
     "moe": ("olmoe-1b-7b", {}),
@@ -283,9 +285,11 @@ def grads_and_steps(cfg, steps: int, mesh=None):
     return {"loss": float(loss), "aux": float(parts["aux"]), "grads": grads, "params": params, "losses": losses}
 
 
-def tp_ranks(rank, world, workdir, meshes, steps):
+def tp_ranks(rank, world, workdir, meshes, steps, cached=None):
     """``grads_and_steps`` of each case on each (data, model) mesh of
-    ``meshes`` ({(data, model): [case, ...]}), on ``world`` gloo ranks."""
+    ``meshes`` ({(data, model): [case, ...]}), and ``cached_forward`` of
+    each case of ``cached`` (the same form, keyed (data, model, case,
+    "cached")), on ``world`` gloo ranks."""
     from repro_torch.launch.mesh import make_smoke_mesh
 
     torch.set_num_threads(1)  # smoke shapes: the ranks would only contend for the cores
@@ -294,6 +298,70 @@ def tp_ranks(rank, world, workdir, meshes, steps):
         mesh = make_smoke_mesh(data, model, device="cpu")
         for case in cases:
             out[(data, model, case)] = grads_and_steps(tp_config(case), steps, mesh)
+    for (data, model), cases in (cached or {}).items():
+        mesh = make_smoke_mesh(data, model, device="cpu")
+        for case in cases:
+            out[(data, model, case, "cached")] = cached_forward(tp_config(case), mesh)
+    return out
+
+
+CACHED_B, CACHED_S, CACHED_STEPS = 2, 8, 2  # rows, prompt tokens, greedy decode steps
+
+
+def gather_vocab(logits, vocab_size: int):
+    """The whole logits (..., V) on every rank from each model rank's
+    columns (``transformer.vocab_logits``) under a tensor-parallel
+    context, ``logits`` itself without one: each rank's part padded to the
+    largest, all-gathered over ``model``, cut back and joined in order."""
+    from repro_torch.models.common import current_tp, split_range
+
+    tp = current_tp()
+    if tp is None:
+        return logits
+    parts = [split_range(vocab_size, tp.model_size, r) for r in range(tp.model_size)]
+    width = max(hi - lo for lo, hi in parts)
+    pad = torch.nn.functional.pad(logits, (0, width - logits.shape[-1])).contiguous()
+    got = [torch.empty_like(pad) for _ in parts]
+    dist.all_gather(got, pad, group=tp.model_group)
+    return torch.cat([t[..., :hi - lo] for t, (lo, hi) in zip(got, parts)], dim=-1)
+
+
+def cached_forward(cfg, mesh=None):
+    """Prefill of a seeded (CACHED_B, CACHED_S) prompt into an f32 cache of
+    CACHED_S + CACHED_STEPS tokens, then CACHED_STEPS greedy decode steps,
+    at ``f32_params``, through the plain versions, under
+    ``tensor_parallel(mesh)`` with ``mesh`` (every row on every rank: data
+    1), else in one process.  -> the whole logits of each step
+    (``gather_vocab``), the tokens, the cache, and this rank's
+    KV heads (``layers.gqa_heads``; all of them without a mesh)."""
+    import contextlib
+
+    from repro_torch.models import api, layers
+    from repro_torch.models.common import current_tp, tensor_parallel
+
+    params = f32_params(cfg)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (CACHED_B, CACHED_S)).astype(np.int64))
+    inputs = {"tokens": tokens}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.from_numpy(rng.standard_normal((CACHED_B, cfg.enc_frames, cfg.d_model))
+                                            .astype(np.float32))
+    cache = _map(lambda t: t.float(), api.init_cache(cfg, CACHED_B, CACHED_S + CACHED_STEPS, "cpu"))
+    out = {"logits": [], "tokens": []}
+    with torch.no_grad(), (tensor_parallel(mesh) if mesh is not None else contextlib.nullcontext()):
+        tp = current_tp()
+        out["kv_heads"] = (0, cfg.n_kv_heads) if tp is None or not cfg.n_kv_heads else layers.gqa_heads(cfg, tp)[0]
+        logits, cache = api.prefill_fn(cfg, plain_kernels=True)(params, inputs, cache, 0)
+        step = api.decode_fn(cfg, plain_kernels=True)
+        for i in range(CACHED_STEPS + 1):
+            full = gather_vocab(logits, cfg.vocab_size)[:, -1]
+            out["logits"].append(full)
+            if i == CACHED_STEPS:
+                break
+            tok = full.argmax(-1, keepdim=True)
+            out["tokens"].append(tok)
+            logits, cache = step(params, tok, cache, CACHED_S + i)
+    out["cache"] = cache
     return out
 
 
@@ -310,3 +378,52 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def allreduce_ranks(rank, world, workdir, arch: str, B: int, S: int):
+    """The train, prefill and decode steps of ``launch.steps`` (as
+    ``lower_cell`` builds them: remat and AdamW, the plain versions) of
+    ``arch``'s smoke config at (B, S) on the (2, 2) mesh, on real tensors:
+    the bytes each step hands ``dist.all_reduce`` on this rank, counted
+    around the call.  The batch comes from numpy with seed 5."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_parallel
+    from repro_torch.training import optim
+
+    torch.set_num_threads(1)
+    mesh = make_smoke_mesh(2, 2, device="cpu")
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)) for k in ("tokens", "labels")}
+    rows = shd.batch_shardings(mesh, batch["tokens"]).shard_slices((B, S))[tuple(mesh.get_coordinate())][0]
+    sent = {"n": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        sent["n"] += t.numel() * t.element_size()
+        return all_reduce(t, *args, **kwargs)
+
+    out = {}
+    dist.all_reduce = counted
+    try:
+        step, ocfg = steps.build_train_step(cfg, mesh=mesh)
+        params = api.init_params(cfg, 0, "cpu")
+        step(params, optim.init_state(ocfg, params), batch)
+        out["train"], sent["n"] = sent["n"], 0
+        params = api.init_params(cfg, 0, "cpu")
+        with torch.no_grad(), tensor_parallel(mesh):
+            steps.build_prefill_step(cfg, ShapeConfig("p", S, B, "prefill"), plain_kernels=True)(
+                params, {"tokens": batch["tokens"][rows]})
+            out["prefill"], sent["n"] = sent["n"], 0
+            cache = api.init_cache(cfg, rows.stop - rows.start, S, "cpu")
+            steps.build_decode_step(cfg, ShapeConfig("d", S, B, "decode"), plain_kernels=True)(
+                params, batch["tokens"][rows, :1], cache, torch.tensor(S - 1, dtype=torch.int32))
+            out["decode"] = sent["n"]
+    finally:
+        dist.all_reduce = all_reduce
+    return out

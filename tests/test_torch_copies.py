@@ -72,3 +72,21 @@ def test_distributed_package_is_a_port_that_names_neither_jax_nor_the_reference(
         assert text != (REF / "distributed" / name).read_text()
         imports = [ln.strip() for ln in text.splitlines() if ln.strip().startswith(("import ", "from "))]
         assert not any("jax" in ln or ln.startswith(("import repro", "from repro")) for ln in imports), name
+
+
+def test_launch_package_ports_every_reference_module_but_hlocost():
+    """Every module of the reference's launch package has a port of the
+    same name, but for ``hlocost.py`` (the port emits no HLO; its
+    counterpart is ``cost.py``, the per-op counter), and the counterparts
+    of ``benchmarks/roofline.py`` and ``benchmarks/kernels_micro.py`` live
+    beside them (``launch/roofline.py``, ``launch/micro.py``).  None of
+    them imports jax, repro or benchmarks."""
+    ref = {p.name for p in (REF / "launch").glob("*.py")}
+    port = {p.name for p in (PORT / "launch").glob("*.py")}
+    assert ref - port == {"hlocost.py"} and {"cost.py", "micro.py"} <= port
+    for path in [PORT / "launch" / name for name in port]:
+        imports = [ln.strip() for ln in path.read_text().splitlines() if ln.strip().startswith(("import ", "from "))]
+        bad = [ln for ln in imports if "jax" in ln or ln.startswith(("import repro ", "import repro.", "from repro ",
+                                                                     "from repro.", "import benchmarks",
+                                                                     "from benchmarks"))]
+        assert not bad, (path.name, bad)

@@ -97,6 +97,25 @@ def test_flash_kernel_reads_a_strided_cache_slice(dev):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("empty", ["kv_heads", "query_groups"])
+def test_attention_wrappers_launch_nothing_for_an_empty_part_of_a_head_split(dev, empty):
+    """A rank's empty part of a ``model`` split (no heads) gives an empty
+    output on the card without a launch, through the wrappers the models
+    call (the model layer sends it nowhere else)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(g, (2, 16, 4, 2, 64), torch.bfloat16, dev)  # (B, S, KVH, G, D)
+    k = _randn(g, (2, 16, 4, 64), torch.bfloat16, dev)
+    q, k = (q[:, :, 4:], k[:, :, 4:]) if empty == "kv_heads" else (q[:, :, :, 2:], k)
+    q = q.flatten(2, 3)
+    tables = torch.arange(2, dtype=torch.int32, device=dev).view(2, 1)
+    lens = torch.full((2,), 9, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    outs = (flash_attention(q, k, k, causal=True), flash_attention_full(q, k, k),
+            paged_decode(q[:, 0], k, k, tables, lens))
+    torch.cuda.synchronize()
+    assert [tuple(o.shape) for o in outs] == [(2, 16, 0, 64), (2, 16, 0, 64), (2, 0, 64)]
+    assert launch_counts()["flash"] == launch_counts()["paged_decode"] == 0
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,KVH,D,page,NB", [
     (1, 40, 8, 128, 16, 9), (4, 8, 2, 64, 8, 12), (3, 4, 4, 32, 32, 3),

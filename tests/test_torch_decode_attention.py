@@ -88,6 +88,23 @@ def test_paged_decode_wrapper_checks_its_inputs():
         paged_decode(*(t.to("meta") for t in (q, kp, kp, tables, lens)))
 
 
+
+@pytest.mark.parametrize("empty", ["kv_heads", "query_groups"])
+def test_paged_decode_takes_an_empty_part_of_a_head_split(empty):
+    """A rank's empty part of a ``model`` split (no KV heads, or no query
+    groups of its KV heads) gives an empty output; no KV heads beside
+    some heads still raises."""
+    q, kp, vp, tables, lens = (torch.from_numpy(a) for a in _inputs(17, 2, 8, 4, 16, 8, 3, 7))
+    q, kp, vp = q.float().unflatten(1, (4, 2)), kp.float(), vp.float()  # q (B, KVH, G, D)
+    if empty == "kv_heads":
+        q, kp, vp = q[:, 4:], kp[:, :, 4:], vp[:, :, 4:]
+    else:
+        q = q[:, :, 2:]
+    out = paged_decode(q.flatten(1, 2), kp, vp, tables, lens)
+    assert out.shape == (2, 0, 16) and out.dtype == torch.float32
+    with pytest.raises(ValueError):
+        paged_decode(torch.zeros(2, 2, 16), kp[:, :, :0], vp[:, :, :0], tables, lens)
+
 # The kernel's split-KV arithmetic (paged_decode_split_plain: the slot range
 # cut by ops.split_plan, a partial softmax per split, the join) against the
 # plain version, in f32.  H100: 132 SMs.

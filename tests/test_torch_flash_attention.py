@@ -112,6 +112,22 @@ def test_flash_wrapper_checks_its_inputs():
         flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
+
+@pytest.mark.parametrize("empty", ["kv_heads", "query_groups"])
+def test_flash_wrappers_take_an_empty_part_of_a_head_split(empty):
+    """A rank's empty part of a ``model`` split (no KV heads, or no query
+    groups of its KV heads) gives an empty output through both wrappers;
+    no KV heads beside some heads still raises."""
+    rng = np.random.default_rng(5)
+    q = torch_from(rng.standard_normal((2, 8, 4, 2, 16)), torch.float32)  # (B, S, KVH, G, D)
+    k = torch_from(rng.standard_normal((2, 8, 4, 16)), torch.float32)
+    q, k = (q[:, :, 4:], k[:, :, 4:]) if empty == "kv_heads" else (q[:, :, :, 2:], k)
+    q = q.flatten(2, 3)
+    for out in (flash_attention(q, k, k, causal=True, q_offset=3), flash_attention_full(q, k, k)):
+        assert out.shape == (2, 8, 0, 16) and out.dtype == torch.float32
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(2, 8, 2, 16), k[:, :, :0], k[:, :, :0])
+
 # The bf16 kernel's arithmetic (flash_tiles_plain: 64-key tiles, P split
 # into bf16 hi + lo for the tensor-core P·V) against the plain version, at
 # the limit the card holds the kernel to: |err| <= 1e-4 + 2^-6 |ref|.

@@ -157,6 +157,37 @@ def test_distributed_layer_runs_with_jax_repro_and_ml_dtypes_blocked(tmp_path):
     assert out.stdout.split()[-1] == "ok"
 
 
+def test_dry_run_tools_run_with_jax_repro_and_benchmarks_blocked(tmp_path):
+    """``launch.cost``, ``launch.steps.lower_cell``, ``launch.dryrun``,
+    ``launch.roofline`` and ``launch.micro`` import and run on the CPU
+    with ``jax``, ``repro``, ``benchmarks`` and ``ml_dtypes`` blocked: one
+    smoke cell traced at (16, 16) and written, the roofline table read
+    back, a matmul counted, and the micro-benchmarks' byte counts."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro", "benchmarks", "ml_dtypes"):
+            sys.modules[name] = None
+        import torch
+        from repro_torch.launch import cost, dryrun, micro, roofline
+        rec = dryrun.run_cell("glm4-9b", "decode_32k", 1, smoke=True, root={str(tmp_path)!r})
+        assert rec["ok"] and rec["roofline"]["bottleneck"] == "memory"
+        rows = roofline.load_cells(1, smoke=True, root={str(tmp_path)!r})
+        assert sum(bool(r.get("ok")) for r in rows) == 1
+        _, t = cost.count(torch.matmul, torch.empty(4, 8, device="meta"), torch.empty(8, 2, device="meta"))
+        assert t.matmul_flops == 2 * 4 * 8 * 2
+        recs = micro.run("cpu", verbose=False)
+        assert [r["name"] for r in recs] == ["flash", "paged_decode", "quantize", "dequantize", "wkv", "ssd"]
+        assert all(r["oracle_hbm_bytes"] > r["kernel_hbm_bytes"] > 0 and "kernel_ms" not in r for r in recs)
+        assert not any(k == "jax" or k.startswith(("jax.", "repro.", "benchmarks", "ml_dtypes")) for k in sys.modules
+                       if sys.modules[k] is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=180)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_no_module_of_the_port_names_jax_or_the_reference():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():

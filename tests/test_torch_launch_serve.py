@@ -70,6 +70,9 @@ def test_launcher_prints_the_reference_lines(tmp_path, capsys, monkeypatch):
 
 def test_mesh_holds_the_h100_constants_and_no_tpu_constant():
     consts = {k: v for k, v in vars(mesh).items() if k.isupper()}
-    assert consts == {"PEAK_FLOPS_BF16": 989e12, "HBM_BW": 3.35e12, "NVLINK_BW": 900e9}
-    assert not {197e12, 819e9, 50e9} & set(consts.values())
-    assert "datasheet" in mesh.__doc__
+    assert consts == {"PEAK_FLOPS_BF16": 989e12, "PEAK_FLOPS_TF32": 494.7e12, "HBM_BW": 3.35e12,
+                      "NVLINK_BW": 900e9, "IB_BW": 50e9, "CARDS_PER_HOST": 8}
+    assert not {197e12, 819e9} & set(consts.values()) and "ICI_BW" not in consts
+    # IB_BW is the HGX H100 host's InfiniBand (8 x 400 Gb/s ConnectX-7 per 8
+    # cards), which equals the v5e's ICI figure by coincidence
+    assert "datasheet" in mesh.__doc__ and "ConnectX-7" in mesh.__doc__

@@ -1,6 +1,8 @@
 """Tensor parallelism over ``model`` (``repro_torch.models.common.tensor_parallel``
 and the splits at the reference's constrain sites), the train step under a
-(data, model) mesh, and moe's balance term over the global batch, on gloo
+(data, model) mesh, the cached forward (prefill and greedy decode) under
+``model``, splits wider than their dim, and moe's balance term over the
+global batch, on gloo
 ranks on the CPU (``tests/dist_harness.py``), held against the same step
 in one process and against the JAX package's jitted ``value_and_grad``
 under its (2, 2) host mesh, in f32, on the same seeded inputs.
@@ -9,8 +11,11 @@ Tolerances (``tests/test_torch_distributed.py``'s data-parallel case),
 each with its reason: the splits sum each rank's partial products over
 ``model`` and the loss's sums of exponentials over the split vocabulary,
 in another order than one device's single products, so f32 results differ
-in summation order only.  Losses within rtol 1e-5 (atol 1e-6); gradients
-and the parameters after three steps within atol = rtol 1e-4.
+in summation order only.  Losses within rtol 1e-5 (atol 1e-6); the cached
+forward's logits and f32 caches within atol = rtol 1e-5 (an entry near
+zero carries the summation noise of its terms, which are of order 1: one
+qwen3-smoke logit of 0.0175 read 1.5e-6 apart); gradients and the
+parameters after three steps within atol = rtol 1e-4.
 
 The three steps run AdamW at eps 1e-6 (``dist_harness.TP_EPS``), not the
 default 1e-8.  AdamW's first step moves an entry by lr·g/(|g| + eps): at
@@ -42,10 +47,19 @@ from repro_torch.models.common import tree_flatten
 SRC = Path(__file__).resolve().parents[1] / "src"
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
 TOL = 1e-4
+CACHED_TOL = 1e-5
 STEPS = 3
 CASES = list(dh.TP_CASES)
 SHAPES = [(1, 2), (2, 2)]
 JAX_CASES = ("dense", "moe", "mla")
+# splits wider than their dim at model 4: rank 3 holds no KV head
+# (dense_uneven: KVH 3, G 1), no query group (dense_groups: KVH 2, G 3) or
+# no expert (moe_uneven: 3 experts; ranks 2 and 3 no KV head); whisper's
+# ranks 2 and 3 hold no KV head of self- or cross-attention (KVH 2, G 2)
+WIDE = ("dense_uneven", "dense_groups", "moe_uneven", "whisper")
+# the cached forward under model 2, one case a family
+CACHED = ("dense", "moe", "mla", "hybrid", "rwkv6", "whisper")
+CACHED_SHAPES = [((1, 2), c) for c in CACHED] + [((1, 4), c) for c in WIDE]
 
 JAX_TP = textwrap.dedent("""
     import os, sys, json, dataclasses
@@ -102,12 +116,21 @@ def one():
 
 
 @pytest.fixture(scope="module")
+def one_cached():
+    """The cached forward of every cached case in one process."""
+    return {c: dh.cached_forward(dh.tp_config(c)) for c in CACHED + WIDE}
+
+
+@pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Every case at (data, model) = (1, 2) and moe at (2, 1) on 2 gloo
-    ranks, every case at (2, 2) on 4; {(data, model, case): [per rank]}."""
+    """Every case at (data, model) = (1, 2) and moe at (2, 1), and the
+    cached forward of CACHED at (1, 2), on 2 gloo ranks; every case at
+    (2, 2), and WIDE's steps and cached forward at (1, 4), on 4;
+    {(data, model, case[, "cached"]): [per rank]}."""
     root = tmp_path_factory.mktemp("tp")
-    two = dh.run_ranks(dh.tp_ranks, 2, str(root / "two"), {(1, 2): CASES, (2, 1): ["moe"]}, STEPS)
-    four = dh.run_ranks(dh.tp_ranks, 4, str(root / "four"), {(2, 2): CASES}, STEPS)
+    two = dh.run_ranks(dh.tp_ranks, 2, str(root / "two"), {(1, 2): CASES, (2, 1): ["moe"]}, STEPS,
+                       {(1, 2): CACHED})
+    four = dh.run_ranks(dh.tp_ranks, 4, str(root / "four"), {(2, 2): CASES, (1, 4): WIDE}, STEPS, {(1, 4): WIDE})
     return {key: [r[key] for r in rs] for rs in (two, four) for key in rs[0]}
 
 
@@ -167,6 +190,46 @@ def test_three_steps_equal_one_process(case, shape, ranks, one):
     for got in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(tree_flatten(got["params"])[0],
                                                      tree_flatten(outs[0]["params"])[0]))
+
+
+@pytest.mark.parametrize("case", WIDE)
+def test_a_split_wider_than_its_dim_equals_one_process(case, ranks, one):
+    """At (1, 4) a rank's part of a split is empty (``common.split_range``):
+    its attention, MLP or experts add zero to the sum over ``model``, and
+    the loss, the gradients and three steps are one process's."""
+    want = one[case]
+    for got in ranks[(1, 4, case)]:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL, atol=LOSS_ATOL)
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=LOSS_RTOL, atol=LOSS_ATOL)
+        _close(got["grads"], want["grads"], case)
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL, atol=LOSS_ATOL)
+        _close(tree_flatten(got["params"])[0], tree_flatten(want["params"])[0], case)
+
+
+# ------------------------------------------------ the cached forward
+@pytest.mark.parametrize("shape,case", CACHED_SHAPES, ids=[f"{c}_model{s[1]}" for s, c in CACHED_SHAPES])
+def test_cached_forward_equals_one_process(shape, case, ranks, one_cached):
+    """Prefill, then two greedy decode steps, with an f32 cache under
+    ``model``: each rank's whole logits (its vocabulary columns gathered)
+    and greedy tokens are one process's, and so is its cache: the view of
+    its KV heads of each GQA leaf (the rest of a leaf it does not write),
+    every other leaf (MLA's latent, the recurrent states) whole.  The
+    ranks' KV heads cover every head."""
+    want = one_cached[case]
+    outs = ranks[shape + (case, "cached")]
+    heads = set()
+    for got in outs:
+        for a, b in zip(got["logits"], want["logits"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=CACHED_TOL, atol=CACHED_TOL)
+        assert all(torch.equal(a, b) for a, b in zip(got["tokens"], want["tokens"]))
+        lo, hi = got["kv_heads"]
+        heads |= set(range(lo, hi))
+        for name, leaf in got["cache"].items():
+            ref = want["cache"][name]
+            if name in shd._ATTN_CACHE:
+                leaf, ref = leaf[:, :, :, lo:hi], ref[:, :, :, lo:hi]
+            np.testing.assert_allclose(leaf.numpy(), ref.numpy(), rtol=CACHED_TOL, atol=CACHED_TOL, err_msg=name)
+    assert heads == set(range(dh.tp_config(case).n_kv_heads))
 
 
 # --------------------------------------------- against the JAX package
@@ -250,14 +313,16 @@ def test_grouped_head_split_is_the_references_rule(kvh, g, want):
 
 
 def test_split_range_covers_the_dim_in_order():
-    for n, m in ((8, 2), (51865, 2), (255, 2), (3, 2), (127, 4), (5, 5)):
-        parts = [common.split_range(n, m, r, "x") for r in range(m)]
+    for n, m in ((8, 2), (51865, 2), (255, 2), (3, 2), (127, 4), (5, 5), (3, 4), (1, 16), (8, 16)):
+        parts = [common.split_range(n, m, r) for r in range(m)]
         assert parts[0][0] == 0 and parts[-1][1] == n
         assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
         assert max(hi - lo for lo, hi in parts) - min(hi - lo for lo, hi in parts) <= 1
-    assert common.split_range(51865, 2, 0, "V") == (0, 25933)
-    with pytest.raises(ValueError, match="qwen's KV heads: 1 cannot split 2 ways"):
-        common.split_range(1, 2, 1, "qwen's KV heads")
+        assert max(hi - lo for lo, hi in parts) == -(-n // m)  # GSPMD's padded part
+    assert common.split_range(51865, 2, 0) == (0, 25933)
+    # a split wider than its dim: one item each for the first n ranks, then empty parts
+    assert [common.split_range(3, 4, r) for r in range(4)] == [(0, 1), (1, 2), (2, 3), (3, 3)]
+    assert [common.split_range(8, 16, r) for r in (0, 7, 8, 15)] == [(0, 1), (7, 8), (8, 8), (8, 8)]
 
 
 # ------------------------------------- without the context, or at model 1
@@ -298,17 +363,3 @@ def test_model_1_runs_the_one_device_code(case):
         dist.destroy_process_group()
     assert ops == plain_ops
     assert torch.equal(got[0], plain[0]) and all(torch.equal(a, b) for a, b in zip(got[2], plain[2]))
-
-
-def test_a_cached_forward_under_a_model_axis_raises():
-    """The prefill and decode with caches under ``model`` are not ported:
-    a clear error, before any collective."""
-    cfg = dh.tp_config("dense")
-    params = api.init_params(cfg, 0, "cpu")
-    cache = api.init_cache(cfg, 1, 16, "cpu")
-    token = common._MESH.set(common.MeshAxes(None, 0, 2, (), 1))
-    try:
-        with pytest.raises(NotImplementedError, match="cache under a model axis"):
-            api.prefill_fn(cfg)(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cache, 0)
-    finally:
-        common._MESH.reset(token)
