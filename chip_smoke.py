@@ -16,20 +16,24 @@ Phases, in order, one line each:
   3. flash         flash-attention kernel vs its plain version on the card, bf16
                    and f32, at the serve path's shape, zamba2's (H 32, KVH 32,
                    D 64), olmoe's (H 16, KVH 16, D 128), minicpm3's MLA
-                   prefill (H 40, q/k head dim 96, v head dim 64) and
-                   glm4-9b's (H 32, KVH 2, D 128), ragged-offset
-                   cases over strided cache slices, and 4096-token prefills at
-                   qwen3-14b's, minicpm3's and zamba2's head shapes, and
+                   prefill (H 40, q/k head dim 96, v head dim 64),
+                   glm4-9b's (H 32, KVH 2, D 128), chameleon-34b's (H 64,
+                   KVH 8, D 128) and kimi-k2's (H 64, KVH 8, D 112),
+                   ragged-offset cases over strided cache slices, and
+                   4096-token prefills at qwen3-14b's, minicpm3's, zamba2's
+                   and kimi-k2's head shapes (kimi-k2's also in f32), and
                    whisper-small's non-causal shapes through the full entry
                    point (encoder 1500 x 1500, prefill cross-attention
                    128 x 1500, H 12, D 64: a key count no block divides); device
                    times (CUDA-graph replay) of kernel, plain version and SDPA
                    (yardstick only: the port never calls it)
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
-                   shape, zamba2's, olmoe's and glm4-9b's (G 16; kv_len
-                   129..136, bf16 and f32), a batch
+                   shape, zamba2's, olmoe's, glm4-9b's (G 16), chameleon-34b's
+                   (G 8) and kimi-k2's (G 8, D 112; kv_len 129..136, bf16
+                   and f32), a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
-                   one kv_len = 0 row, one 4096-token sequence, whisper-small's
+                   one kv_len = 0 row, one 4096-token sequence (and one at
+                   kimi-k2's shape, bf16 and f32), whisper-small's
                    decode cross-attention (kv_len 1500 over 94 pages); the paged-pool
                    staging check; times as above
   5. serve         full-width qwen3-14b through launch.serve_e2e.main: staged
@@ -68,6 +72,20 @@ Phases, in order, one line each:
                    serve phase's workload and gates (flash 40 per prefill,
                    paged decode 40 per token), then glm4-check: phase 6's
                    checks and its steps line
+  6c. qwen2.5-32b, chameleon-34b, kimi-k2
+                   the three configs first served on the card: qwen2.5-32b
+                   (64 layers, d 5120, qkv bias; 65.5 GB of bf16 weights)
+                   and chameleon-34b (48 layers, d 8192, QK-norm; 68.6 GB)
+                   at full width and depth, kimi-k2 at full width and 1 of
+                   61 layers (d 7168, 64 heads of 112, 384 experts top-8;
+                   38.8 GB), one after another, each after a check that the
+                   card holds under MEM_BEFORE_CELL_GB: glm4's phases, with
+                   kimi-k2's decode check on the kernel path's routing (as
+                   phase olmoe's); each cell's decode ms a token against
+                   the bound of reading its weights once (kimi-k2's also
+                   against the weights its top-8 experts need), kimi-k2's
+                   dispatch buffer, its zero rows and the expert products'
+                   ms in one prefill; peak memory and seconds
   7. wkv           RWKV6 WKV kernel vs its chunked plain version on the card, f32
                    arithmetic: the rwkv6 path's shape (model layout, chunk 16,
                    the model's decay, so the log-decay clamp acts), a ragged S
@@ -183,7 +201,10 @@ Phases, in order, one line each:
                    with_flops total (gated within 1 %); (c) qwen3-14b x
                    train_4k and glm4-9b x decode_32k at full width on the
                    (16, 16) mesh through launch/dryrun.py in subprocesses,
-                   each record printed (gated ok, FLOPs and bytes > 0).
+                   each record printed (gated ok, FLOPs and bytes > 0);
+                   (d) phase 6c's cells at (a)'s shapes, each step's
+                   predicted peak bytes beside its phase's measured peak
+                   and the card's memory (printed, not gated).
                    Decode's bytes gated within 1.0-1.25x of what a decode
                    step must read (every parameter but the embedding table,
                    plus the cached tokens' K/V)
@@ -193,11 +214,15 @@ Phases, in order, one line each:
                    quantize and dequantize 256 x 8192, WKV B8 H32 S4096 N64
                    f32, SSD B8 S4096 H32 P64 N64 f32): bytes by design,
                    its plain version's bytes (the cost counter on meta),
-                   bound and kernel ms (CUDA-graph replay, median of 5)
+                   bound, kernel ms and library ms (CUDA-graph replay,
+                   median of 5; SDPA for flash and paged decode,
+                   torch.mul for dequantize, none for the others)
  20. kernels       one JSON line describing the six kernels: `launches` is
-                   the wrappers' count over the main path's run (eager
-                   launches and launches recorded into graphs at capture),
-                   `replayed_launches` the launches the main path's graph
+                   the wrappers' count over the main paths' runs (eager
+                   launches and launches recorded into graphs at capture;
+                   flash and paged decode summed over the four serve paths,
+                   `by_path` each one's share),
+                   `replayed_launches` the launches the main paths' graph
                    replays ran on the card, from the device trace
 
 Every phase runs on every call.  Any failed phase raises and the exit code
@@ -373,9 +398,11 @@ def phase_flash():
          library_ms=f"{graph_ms(lambda: F.scaled_dot_product_attention(qzt, kzt, vzt, is_causal=True), 200):.5f}",
          bound_ms=f"{boundz[0]:.5f}", bound_by=boundz[1])
 
-    # olmoe-1b-7b, minicpm3-4b (MLA) and glm4-9b (G 16): their 128-token prompts
+    # olmoe-1b-7b, minicpm3-4b (MLA), glm4-9b (G 16), chameleon-34b (G 8)
+    # and kimi-k2 (G 8 at head dim 112): their 128-token prompts
     for label, Hm, KVHm, Dm, Dvm in (("olmoe", 16, 16, 128, 128), ("minicpm3", 40, 40, 96, 64),
-                                     ("glm4", 32, 2, 128, 128)):
+                                     ("glm4", 32, 2, 128, 128), ("chameleon", 64, 8, 128, 128),
+                                     ("kimi", 64, 8, 112, 112)):
         qm, km, vm = rand(B, S, Hm, Dm), rand(B, S, KVHm, Dm), rand(B, S, KVHm, Dvm)
         errm, sharem = assert_bf16(f"flash {label}", flash_attention(qm, km, vm, causal=True),
                                    flash_attention_plain(qm, km, vm, True, 0))
@@ -438,22 +465,32 @@ def phase_flash():
     del qL, kL, vL, qLt, kLt, vLt
     torch.cuda.empty_cache()
 
-    # 4096-token prefills at minicpm3's MLA head dims and zamba2's G 1, D 64
-    for label, Hl, KVHl, Dl, Dvl in (("large_minicpm3", 40, 40, 96, 64), ("large_zamba2", 32, 32, 64, 64)):
+    # 4096-token prefills at minicpm3's MLA head dims, zamba2's G 1, D 64 and
+    # kimi-k2's head dim 112 (its f32 instance held there too)
+    for label, Hl, KVHl, Dl, Dvl, f32 in (("large_minicpm3", 40, 40, 96, 64, False),
+                                          ("large_zamba2", 32, 32, 64, 64, False),
+                                          ("large_kimi", 64, 8, 112, 112, True)):
         ql, kl, vl = rand(1, SL, Hl, Dl), rand(1, SL, KVHl, Dl), rand(1, SL, KVHl, Dvl)
         errl, sharel = assert_bf16(f"flash {label}", flash_attention(ql, kl, vl, causal=True),
                                    flash_attention_plain(ql, kl, vl, True, 0))
+        f32_err = {}
+        if f32:
+            ql32, kl32, vl32 = ql.float(), kl.float(), vl.float()
+            errl32, _ = assert_close(f"flash {label} f32", flash_attention(ql32, kl32, vl32, causal=True),
+                                     flash_attention_plain(ql32, kl32, vl32, True, 0), F32_TOL)
+            f32_err = {"f32_err": f"{errl32:.3e}", "f32_tol": F32_TOL}
+            del ql32, kl32, vl32
         rec["max_abs_err"] = max(rec["max_abs_err"], errl)
         qlt, klt, vlt = ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2)
         boundl = _flash_bound(1, SL, SL, Hl, KVHl, Dl, 0, Dv=Dvl)
         rec[label] = {"shape": f"B1 S{SL} H{Hl} KVH{KVHl} D{Dl} Dv{Dvl} causal bf16", "max_abs_err": errl,
                       "ms": graph_ms(lambda: flash_attention(ql, kl, vl, causal=True), 5, reps=3),
                       "plain_ms": graph_ms(lambda: flash_attention_plain(ql, kl, vl, True, 0), 2, reps=3),
-                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qlt, klt, vlt, is_causal=True),
-                                            5, reps=3),
+                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                          qlt, klt, vlt, is_causal=True, enable_gqa=Hl != KVHl), 5, reps=3),
                       "bound_ms": boundl[0], "bound_by": boundl[1]}
         line("flash", case=rec[label]["shape"], max_abs_err=f"{errl:.3e}", tol=BF16_LIMIT, of_limit=f"{sharel:.3f}",
-             kernel_ms=f"{rec[label]['ms']:.4f}", plain_ms=f"{rec[label]['plain_ms']:.4f}",
+             **f32_err, kernel_ms=f"{rec[label]['ms']:.4f}", plain_ms=f"{rec[label]['plain_ms']:.4f}",
              library_ms=f"{rec[label]['library_ms']:.4f}", bound_ms=f"{boundl[0]:.4f}", bound_by=boundl[1])
         del ql, kl, vl, qlt, klt, vlt
         torch.cuda.empty_cache()
@@ -547,9 +584,11 @@ def phase_paged_decode():
          bound_by=rec["bound_by"])
 
     # zamba2's shared attention block (H 32, KVH 32, G 1, D 64), olmoe's
-    # attention (H 16, KVH 16, G 1, D 128) and glm4-9b's (H 32, KVH 2: G 16
-    # query heads in one m16 tile) at decode
-    for label, Hz, KVHz, Dz in (("zamba2", 32, 32, 64), ("olmoe", 16, 16, 128), ("glm4", 32, 2, 128)):
+    # attention (H 16, KVH 16, G 1, D 128), glm4-9b's (H 32, KVH 2: G 16
+    # query heads in one m16 tile), chameleon-34b's (H 64, KVH 8, G 8) and
+    # kimi-k2's (G 8 at head dim 112) at decode
+    for label, Hz, KVHz, Dz in (("zamba2", 32, 32, 64), ("olmoe", 16, 16, 128), ("glm4", 32, 2, 128),
+                                ("chameleon", 64, 8, 128), ("kimi", 64, 8, 112)):
         kpz, vpz = (rand(1, Smax, KVHz, Dz).view(NB, page, KVHz, Dz) for _ in range(2))
         qz = rand(1, Hz, Dz)
         errs = []
@@ -657,6 +696,30 @@ def phase_paged_decode():
     del kpl, vpl, sk, sv
     torch.cuda.empty_cache()
 
+    # one 4096-token sequence at kimi-k2's head dim 112, bf16 and f32
+    kpk, vpk = rand(NBl, page, 8, 112), rand(NBl, page, 8, 112)
+    qk = rand(1, 64, 112)
+    errk, sharek = assert_bf16("paged_decode kimi one long sequence", paged_decode(qk, kpk, vpk, tabl, lensl),
+                               paged_decode_ref(qk, kpk, vpk, tabl, lensl))
+    errk32, _ = assert_close("paged_decode kimi one long sequence f32",
+                             paged_decode(qk.float(), kpk.float(), vpk.float(), tabl, lensl),
+                             paged_decode_ref(qk.float(), kpk.float(), vpk.float(), tabl, lensl), F32_TOL)
+    rec["max_abs_err"] = max(rec["max_abs_err"], errk)
+    sq, sk, sv, _ = _dense_sdpa_inputs(qk, kpk, vpk, tabl, lensl)
+    boundk = _decode_bound(1, 64, 8, 112, NBl * page, NBl)
+    rec["large_one_kimi"] = {"shape": f"B1 H64 KVH8 D112 page16 kv_len{NBl * page} shuffled bf16", "max_abs_err": errk,
+                             "ms": graph_ms(lambda: paged_decode(qk, kpk, vpk, tabl, lensl), 200),
+                             "plain_ms": graph_ms(lambda: paged_decode_ref(qk, kpk, vpk, tabl, lensl), 20),
+                             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, enable_gqa=True),
+                                                    200),
+                             "bound_ms": boundk[0], "bound_by": boundk[1]}
+    line("paged_decode", case=rec["large_one_kimi"]["shape"], max_abs_err=f"{errk:.3e}", tol=BF16_LIMIT,
+         of_limit=f"{sharek:.3f}", f32_err=f"{errk32:.3e}", f32_tol=F32_TOL,
+         kernel_ms=f"{rec['large_one_kimi']['ms']:.5f}", plain_ms=f"{rec['large_one_kimi']['plain_ms']:.5f}",
+         library_ms=f"{rec['large_one_kimi']['library_ms']:.5f}", bound_ms=f"{boundk[0]:.5f}", bound_by=boundk[1])
+    del kpk, vpk, sk, sv
+    torch.cuda.empty_cache()
+
     # staging check: promote blocks into a pool on the card, decode per layer,
     # compare with the plain version and with dense attention per sequence
     rng = torch.Generator().manual_seed(0)
@@ -692,8 +755,8 @@ def phase_paged_decode():
     return rec
 
 
-def phase_serve(seed, arch=ARCH, phase="serve"):
-    """Full-width ``arch`` through ``launch.serve_e2e.main``: the staged
+def phase_serve(seed, arch=ARCH, phase="serve", cfg=None):
+    """Full-width ``arch`` (or ``cfg``, a cut of it) through ``launch.serve_e2e.main``: the staged
     workload with its prefills through the hook's captured step, then 8
     tokens through captured prefill and decode steps.  Gates: hits exact
     per stage; the wrappers' launch counts exact for the steps captured
@@ -709,7 +772,7 @@ def phase_serve(seed, arch=ARCH, phase="serve"):
     from repro_torch.models import api
     from repro_torch.models.common import count_params, tree_leaves
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed, "cuda")
     torch.cuda.synchronize()
@@ -721,7 +784,7 @@ def phase_serve(seed, arch=ARCH, phase="serve"):
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve_main(arch=arch, device="cuda", seed=seed, params=params)
+    res = serve_main(arch=arch, device="cuda", seed=seed, params=params, cfg=cfg)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
@@ -832,14 +895,31 @@ def phase_decode_check(cfg, params, res, phase="decode-check", table="profile_pr
     and argmax tokens.  Also times, warm, one 128-token prefill and the
     8-step decode on each path (host clock, synchronised).  Returns the
     launches the serve run's graph replays ran and the steps' timings
-    (``steps_line``)."""
+    (``steps_line``).
+
+    An moe model's routing decides its result, as in ``phase_model``: the
+    kernel path's top-k choices are recorded on the same steps run eagerly
+    (a replay runs no Python to record), teacher-forced on the serve run's
+    inputs; the plain path on its own routing is printed with the choices
+    that differ, and the gates read the plain path run on the kernel
+    path's routing."""
     import torch
 
     from repro_torch.launch.serve_e2e import greedy_decode
 
     prompt, n, fed = res["prompt"], res["decode_steps"], res["decode_inputs"]
-    plain_tokens, _, plain_logits = greedy_decode(cfg, params, prompt, n, "cuda",
-                                                  plain_kernels=True, inputs=fed)
+    moe = cfg.family == "moe"
+    if moe:
+        routing = RoutingRecorder()
+        with routing:
+            greedy_decode(cfg, params, prompt, n, "cuda", inputs=fed, graphs=False)
+    plain_routing = RoutingRecorder() if moe else contextlib.nullcontext()
+    with plain_routing:
+        plain_tokens, _, plain_logits = greedy_decode(cfg, params, prompt, n, "cuda",
+                                                      plain_kernels=True, inputs=fed)
+    if moe:
+        plain_tokens, plain_logits = plain_on_kernel_routing(cfg, params, prompt, fed, res["decode_logits"],
+                                                             routing, plain_routing, plain_logits, phase)
     err = max_err(res["decode_logits"], plain_logits)
     scale = float(plain_logits.abs().max())
     agree = sum(a == b for a, b in zip(plain_tokens, res["decoded"])) / len(res["decoded"])
@@ -875,12 +955,13 @@ def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "pro
     profile_call(prefill, phase, table, f"one warm {toks.shape[1]}-token prefill, kernel path, under torch.profiler")
 
 
-def profile_call(fn, phase: str, table: str, what: str):
+def profile_call(fn, phase: str, table: str, what: str, ops=()):
     """torch.profiler over one call of ``fn``: device busy time (sum of
     kernel times, one stream) against the synchronised wall time, and the
     kernels that take it.  The table is written to the file ``table`` in
     the output directory beside this script.  Returns (wall ms, busy ms,
-    each kernel's launches in the trace)."""
+    each kernel's launches in the trace, the device ms of the kernels each
+    op of ``ops`` launched: aten names, as in the table)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -900,10 +981,12 @@ def profile_call(fn, phase: str, table: str, what: str):
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", table), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=30))
+    op_ms = {op: sum(e.device_time_total for e in events if e.key == op) / 1e3 for op in ops}
     line(phase, what=what, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
          idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
-         top=";".join(f"{e.key[:40]}:{e.self_device_time_total / 1e3:.3f}ms" for e in top))
-    return wall_ms, busy_ms, traced
+         top=";".join(f"{e.key[:40]}:{e.self_device_time_total / 1e3:.3f}ms" for e in top),
+         **{f"{op.replace('aten::', '')}_device_ms": f"{ms:.3f}" for op, ms in op_ms.items()})
+    return wall_ms, busy_ms, traced, op_ms
 
 
 def traced_launches(fn):
@@ -1205,6 +1288,122 @@ def phase_ssd():
     return rec
 
 
+# ------------------------------------- cells first served in full on the card
+# (phase, arch, layers served: None for every layer).  kimi-k2 at full width
+# and 1 of 61 layers: one layer with all 384 experts is 33.8 GB, so a second
+# would leave no room for a 128-token prefill's 5.64 GB dispatch buffer.
+FULL_CELLS = (("qwen2.5-32b", "qwen2.5-32b", None), ("chameleon-34b", "chameleon-34b", None),
+              ("kimi-k2", "kimi-k2-1t-a32b", 1))
+# device memory a cell may find in use when it starts (allocated and
+# reserved): the earlier phases leave no weights, graph, hook or step alive
+MEM_BEFORE_CELL_GB = 1.0
+
+
+def _weight_bytes(params, expert_share=None) -> int:
+    """Bytes of every weight; with ``expert_share`` (k / E), what one
+    decoded token reads: that share of the expert weights and one row of
+    the embedding."""
+    total = 0
+    for name, t in _named_leaves(params):
+        nbytes = t.numel() * t.element_size()
+        if expert_share is not None and name == "embed":
+            nbytes = t.shape[-1] * t.element_size()
+        elif expert_share is not None and ".moe.w_" in f".{name}":
+            nbytes *= expert_share
+        total += nbytes
+    return int(total)
+
+
+def moe_dispatch(cfg, params, prompt, phase: str):
+    """One eager kernel-path prefill of ``prompt`` with its routing recorded,
+    then under torch.profiler: each layer's dropless dispatch buffer (1, E,
+    C, D) in bf16, C = ``moe_capacity`` (S·k), the share of its rows that
+    hold no routed token (from the recorded top-k choices), and the expert
+    products' device ms (the aten::bmm rows of the profile table)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.layers import moe_capacity
+
+    toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
+    S, E, D = toks.shape[1], cfg.n_experts, cfg.d_model
+    C = moe_capacity(cfg, S, dropless=True)
+    pfn = api.prefill_fn(cfg)
+
+    def prefill():
+        with torch.inference_mode():
+            pfn(params, {"tokens": toks}, api.init_cache(cfg, 1, S, "cuda"), 0)
+
+    routing = RoutingRecorder()
+    with routing:
+        prefill()
+    routed = sum(int(torch.bincount(ids.flatten(), minlength=E).clamp(max=C).sum()) for ids in routing.calls)
+    rows = len(routing.calls) * E * C
+    wall, busy, _, op_ms = profile_call(prefill, phase, f"profile_prefill_{phase}_dispatch.txt",
+                                        f"one warm {S}-token prefill, kernel path, under torch.profiler",
+                                        ops=("aten::bmm",))
+    line(phase, what=f"dropless dispatch of one {S}-token prefill", capacity=C, buffer=f"1x{E}x{C}x{D}_bf16",
+         buffer_bytes=E * C * D * 2, buffers=len(routing.calls), routed_rows=routed, rows=rows,
+         zero_row_share=f"{1 - routed / rows:.5f}", expert_products_device_ms=f"{op_ms['aten::bmm']:.3f}",
+         device_busy_ms=f"{busy:.3f}", expert_share_of_busy=f"{op_ms['aten::bmm'] / busy:.3f}")
+
+
+def phase_full_cell(phase: str, arch: str, n_layers=None):
+    """``arch`` at full width (``n_layers`` of its layers when given, else
+    all) through phase serve's path and gates and phase decode-check's
+    (an moe model's on the kernel path's routing), after a check that
+    the card starts near empty.  Prints the decode ms a token against the
+    bound of reading every weight once (and, for an moe model, the weights
+    a token's top-k experts need) and the dispatch of one prefill; the
+    peak memory of the phase.  Returns the cell's config, peak bytes,
+    launch counts, replayed launches and step timings, and frees it all."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HBM_BW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    alloc, reserved = torch.cuda.memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    line(phase, before_allocated_gb=f"{alloc:.3f}", before_reserved_gb=f"{reserved:.3f}",
+         limit_gb=MEM_BEFORE_CELL_GB, total_memory_gb=f"{total / 1e9:.2f}",
+         reduced="none" if n_layers is None else f"n_layers_{full.n_layers}->{n_layers}", head=cfg.d_head,
+         **({"experts": cfg.n_experts, "top_k": cfg.experts_per_token, "moe_d_ff": cfg.moe_d_ff}
+            if cfg.family == "moe" else {}))
+    if max(alloc, reserved) > MEM_BEFORE_CELL_GB:
+        raise AssertionError(f"{phase}: {alloc:.3f} GB allocated, {reserved:.3f} GB reserved before the weights")
+    cfg, params, res, counts = phase_serve(SEED, arch, phase=phase, cfg=cfg)
+    replayed, timing = phase_decode_check(cfg, params, res, phase=f"{phase}-check",
+                                          table=f"profile_prefill_{phase}.txt")
+    decode_ms = timing["graph_decode_device_ms_per_token"]
+    bounds = {"all_weights": _weight_bytes(params)}
+    if cfg.family == "moe":
+        bounds["active_weights"] = _weight_bytes(params, expert_share=cfg.experts_per_token / cfg.n_experts)
+        moe_dispatch(cfg, params, res["prompt"], phase)
+    line(phase, what="graph decode a token against reading its weights once at HBM_BW",
+         graph_decode_device_ms_per_token=f"{decode_ms:.3f}",
+         graph_prefill_device_ms=f"{timing['graph_prefill_device_ms']:.3f}",
+         **{f"{k}_gb": f"{v / 1e9:.3f}" for k, v in bounds.items()},
+         **{f"{k}_bound_ms": f"{v / HBM_BW * 1e3:.3f}" for k, v in bounds.items()},
+         **{f"over_{k}_bound": f"{decode_ms / (v / HBM_BW * 1e3):.2f}x" for k, v in bounds.items()})
+    peak = torch.cuda.max_memory_allocated()
+    line(phase, peak_mem_gb=f"{peak / 1e9:.2f}", peak_reserved_gb=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
+         total_memory_gb=f"{total / 1e9:.2f}", seconds=f"{time.perf_counter() - t0:.1f}")
+    out = {"phase": phase, "cfg": cfg, "peak_bytes": peak, "counts": counts, "replayed": replayed,
+           "timing": timing}
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------- full-width models
 MODELS = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b", "olmoe": "olmoe-1b-7b", "minicpm3": "minicpm3-4b",
           "whisper": "whisper-small"}
@@ -1367,6 +1566,25 @@ class RoutingReplay:
         layers.moe_route = self._real
 
 
+def plain_on_kernel_routing(cfg, params, prompt, fed, logits, routing, plain_routing, plain_logits, phase):
+    """The plain path teacher-forced on ``fed`` again, each moe call on the
+    kernel path's top-k choices (``routing``, a ``RoutingRecorder`` over the
+    kernel path's run on the same inputs): its (tokens, logits).  Prints
+    how many choices the plain path's own run (``plain_routing``, giving
+    ``plain_logits``) made otherwise, and its logit error against the
+    kernel path's ``logits``."""
+    from repro_torch.launch.serve_e2e import greedy_decode
+
+    diff, total = routing_differences(routing.calls, plain_routing.calls, cfg.n_experts)
+    err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
+    line(phase, check="top-k routing, kernel path vs plain path, bf16", routing_choices_differing=diff,
+         routing_choices=total, moe_calls=len(routing.calls), logits_max_abs_err_own_routing=f"{err:.4e}",
+         of_max_abs_logit=f"{err / scale:.4f}")
+    with RoutingReplay(routing.calls):
+        tokens, _, replayed = greedy_decode(cfg, params, prompt, len(fed), "cuda", plain_kernels=True, inputs=fed)
+    return tokens, replayed
+
+
 def routing_differences(a, b, n_experts: int):
     """(expert choices in ``a`` not made in ``b``, all choices): the two
     recordings cover the same calls on the same tokens."""
@@ -1474,14 +1692,9 @@ def phase_model(phase: str, seed: int, capture=None):
     what = "teacher-forced plain path, bf16 (agreement and chaining not gated)"
     if moe:
         # routing decides the result: the gate reads the plain path run
-        # on the kernel path's routing; the free-running difference and
-        # the count of choices that flipped are printed
-        diff, total = routing_differences(routing.calls, plain_routing.calls, cfg.n_experts)
-        line(phase, check="top-k routing, kernel path vs plain path, bf16", routing_choices_differing=diff,
-             routing_choices=total, moe_calls=len(routing.calls), logits_max_abs_err_own_routing=f"{err:.4e}",
-             of_max_abs_logit=f"{err / scale:.4f}")
-        with RoutingReplay(routing.calls):
-            _, _, plain_logits = greedy_decode(cfg, params, prompt, DECODE, "cuda", plain_kernels=True, inputs=fed)
+        # on the kernel path's routing
+        _, plain_logits = plain_on_kernel_routing(cfg, params, prompt, fed, logits, routing, plain_routing,
+                                                  plain_logits, phase)
         err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
         what = "teacher-forced plain path on the kernel path's routing, bf16 (agreement and chaining not gated)"
     toks = torch.tensor(prompt, dtype=torch.int64, device="cuda")[None, :]
@@ -2716,7 +2929,7 @@ def _profiler_flops_check():
                              f"torch.profiler's {total:.6e} (rtol {DRYRUN_FLOP_RTOL})")
 
 
-def phase_dryrun(train_step_ms: float, serve_times):
+def phase_dryrun(train_step_ms: float, serve_times, cells=()):
     """The dry run (``launch.steps.lower_cell``: the step traced on meta
     tensors in this process, no device) beside what the card measured in
     this run: (a) qwen3-14b's serve-shape prefill (B 1, S 128) and decode
@@ -2725,7 +2938,10 @@ def phase_dryrun(train_step_ms: float, serve_times):
     B 8 x S 128, against phase train's step ms; the counter against
     torch.profiler on one eager prefill on the card; (c) two full-width
     production cells on (16, 16) through ``launch.dryrun`` in
-    subprocesses.  Gates: decode's bytes within DRYRUN_DECODE_BYTES of
+    subprocesses; (d) each of ``cells`` (``phase_full_cell``'s records)
+    at the same serve shapes as (a), its predicted peak bytes beside the
+    peak its phase measured and the card's memory (a prediction over the
+    card is printed, not gated).  Gates: decode's bytes within DRYRUN_DECODE_BYTES of
     what a decode step must read (every parameter but the embedding
     table, whose rows it gathers, and the K/V of the 136 cached tokens);
     the counter within DRYRUN_FLOP_RTOL of the profiler; each production
@@ -2790,6 +3006,25 @@ def phase_dryrun(train_step_ms: float, serve_times):
         cost_ = rec.get("cost_analysis", {})
         if not (rec.get("ok") and cost_.get("flops", 0) > 0 and cost_.get("bytes_accessed", 0) > 0):
             failed.append(f"{arch} x {shape}: rc {out.returncode}, {out.stderr[-1500:]}")
+    import torch
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    for cell in cells:
+        ccfg = cell["cfg"]
+        for shape in (prefill, decode):
+            lowered = steps.lower_cell(one, ccfg, shape)
+            mem = lowered.memory_analysis()
+            terms = _terms(lowered, ccfg, shape)
+            measured = (cell["timing"]["graph_prefill_device_ms"] if shape.kind == "prefill"
+                        else cell["timing"]["graph_decode_device_ms_per_token"])
+            _dryrun_line("d", f"{cell['phase']} {shape.kind} B1 {'S' if shape.kind == 'prefill' else 'kv'}"
+                         f"{shape.seq_len} at mesh (1,1), {ccfg.n_layers} layers", terms, measured,
+                         f"phase_{cell['phase']}_graph_{shape.kind}_device_ms", trace_s=f"{lowered.lower_s:.2f}",
+                         argument_gb=f"{mem['argument_size_in_bytes'] / 1e9:.3f}",
+                         temp_gb=f"{mem['temp_size_in_bytes'] / 1e9:.3f}",
+                         predicted_peak_gb=f"{mem['peak_bytes_per_device'] / 1e9:.3f}",
+                         measured_phase_peak_gb=f"{cell['peak_bytes'] / 1e9:.3f}", card_gb=f"{card / 1e9:.3f}",
+                         prediction_over_card=mem["peak_bytes_per_device"] > card)
     line("dryrun", seconds=f"{time.perf_counter() - t0:.1f}")
     if not DRYRUN_DECODE_BYTES[0] <= ratio <= DRYRUN_DECODE_BYTES[1]:
         failed.append(f"decode bytes {dec_t['bytes']:.4e} are {ratio:.4f}x the {must_read:.4e} a step must read")
@@ -2813,20 +3048,23 @@ def phase_kernels_micro():
         line("kernels-micro", name=r["name"], shape=r["shape"].replace(" ", "_"), dtype=r["dtype"],
              kernel_bytes=f"{r['kernel_hbm_bytes']:.4e}", oracle_bytes=f"{r['oracle_hbm_bytes']:.4e}",
              traffic_reduction=f"{r['traffic_reduction']:.1f}", bound_ms=f"{r['bound_ms']:.5f}",
-             bound_by=r["bound_by"], kernel_ms=f"{r['kernel_ms']:.5f}", share_of_bound=f"{r['share_of_bound']:.3f}")
+             bound_by=r["bound_by"], kernel_ms=f"{r['kernel_ms']:.5f}", share_of_bound=f"{r['share_of_bound']:.3f}",
+             library_ms="null" if r["library_ms"] is None else f"{r['library_ms']:.5f}")
     line("kernels-micro", seconds=f"{time.perf_counter() - t0:.1f}")
     bad = [r["name"] for r in recs if not (math.isfinite(r["kernel_ms"]) and r["kernel_ms"] > 0)]
     if bad:
         raise AssertionError(f"kernels-micro: no time for {bad}")
 
 
-def kernels_line(recs, counts, replayed):
+def kernels_line(recs, counts, replayed, by_path=None):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
-    counts of the main path that runs it: the qwen3-14b serve for flash and
-    paged_decode, the codec's entry points over the serve blocks and the
-    latent slab for quantize and dequantize, rwkv6-1.6b for wkv,
-    zamba2-1.2b for ssd.  ``replayed`` maps each kernel to the launches
-    the same path's CUDA-graph replays ran, read from device traces."""
+    counts of the main paths that run it: the serve paths for flash and
+    paged_decode (qwen3-14b, qwen2.5-32b, chameleon-34b and kimi-k2, each
+    counted from 0 just before it), the codec's entry points over the
+    serve blocks and the latent slab for quantize and dequantize,
+    rwkv6-1.6b for wkv, zamba2-1.2b for ssd.  ``replayed`` maps each
+    kernel to the launches the same paths' CUDA-graph replays ran, read
+    from device traces; ``by_path`` to each path's share of both."""
     entries = []
     for name, src, rep, tol in (
         ("flash", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2855,8 +3093,11 @@ def kernels_line(recs, counts, replayed):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
             "large": rec["large"],
         }
-        for extra in ("olmoe", "minicpm3", "zamba2", "glm4", "slab", "large_minicpm3", "large_zamba2", "large_one",
-                      "whisper_encoder", "whisper_cross"):
+        if by_path and name in by_path:
+            entry["by_path"] = by_path[name]
+        for extra in ("olmoe", "minicpm3", "zamba2", "glm4", "chameleon", "kimi", "slab", "large_minicpm3",
+                      "large_zamba2", "large_kimi", "large_one", "large_one_kimi", "whisper_encoder",
+                      "whisper_cross"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if entry["library_ms"] is None:
@@ -2892,6 +3133,7 @@ def main() -> int:
     phase_decode_check(glm_cfg, glm_params, glm_res, phase="glm4-check", table="profile_prefill_glm4.txt")
     del glm_params, glm_res
     torch.cuda.empty_cache()
+    cells = [phase_full_cell(phase, arch, n_layers) for phase, arch, n_layers in FULL_CELLS]
     rwkv6_counts, rwkv6_replayed, _ = phase_model("rwkv6", SEED)
     zamba2_counts, zamba2_replayed, _ = phase_model("zamba2", SEED)
     phase_model("olmoe", SEED)
@@ -2901,16 +3143,22 @@ def main() -> int:
     step_ms = phase_train()
     phase_distributed(step_ms)
     phase_tensor_parallel()
-    phase_dryrun(step_ms, serve_times)
+    phase_dryrun(step_ms, serve_times, cells)
     phase_kernels_micro()
-    path_counts = {"flash": counts["flash"], "paged_decode": counts["paged_decode"],
+    # the serve paths' attention launches: qwen3-14b's, then the full cells'
+    serve_paths = [("qwen3-14b", counts, serve_replayed)] + [(c["phase"], c["counts"], c["replayed"]) for c in cells]
+    by_path = {k: {p: {"launches": c[k], "replayed_launches": r[k]} for p, c, r in serve_paths}
+               for k in ("flash", "paged_decode")}
+    path_counts = {"flash": sum(c["flash"] for _, c, _ in serve_paths),
+                   "paged_decode": sum(c["paged_decode"] for _, c, _ in serve_paths),
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}
-    replayed = {"flash": serve_replayed["flash"], "paged_decode": serve_replayed["paged_decode"],
+    replayed = {"flash": sum(r["flash"] for _, _, r in serve_paths),
+                "paged_decode": sum(r["paged_decode"] for _, _, r in serve_paths),
                 "quantize": 0, "dequantize": 0,  # the codec's entry points run eagerly
                 "wkv": rwkv6_replayed["wkv"], "ssd": zamba2_replayed["ssd"]}
     recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd}
-    print(json.dumps(kernels_line(recs, path_counts, replayed)), flush=True)
+    print(json.dumps(kernels_line(recs, path_counts, replayed, by_path)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.1f} card={smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

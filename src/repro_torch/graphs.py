@@ -82,6 +82,10 @@ class CapturedStep:
         static = [tree_unflatten(d, lv) for d, lv in zip(self._defs, self._leaves)]
 
         t0 = time.perf_counter()
+        # blocks cached for other streams cannot serve the side stream's warm
+        # calls: hand them back first (a large step's warm calls need them)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(main)

@@ -42,10 +42,14 @@
 // joined once at the end of the range.
 //
 // f32 (paged_decode_split_kernel): FMA units.
-// Scores: a warp takes 32 / LPT tokens at a time, LPT lanes to a token,
-// each lane one 16-byte piece of the K row, the G dot products joined by
-// shuffles.  P·V: a thread owns a pair of output dims of one query row and
-// walks the chunk's tokens.
+// Scores: a warp takes 32 / LPT tokens at a time, LPT lanes to a token
+// (the K row's 16-byte pieces rounded up to a power of 2: 28 pieces of
+// head dim 112 take 32 lanes, 4 of them idle), each lane one piece, the G
+// dot products joined by shuffles.  P·V: a thread owns a pair of output
+// dims of one query row and walks the chunk's tokens.
+//
+// Head dims (instances at the end): 32, 64, 112 (kimi-k2's 7168 / 64:
+// 7 k-steps of 16 and 14 n-tiles of 8 in the bf16 kernel) and 128.
 //
 // paged_decode_join_kernel, one block per (query row, KV head, sequence):
 // joins the partials with the usual rescale, acc = sum_s e^(m_s - M) acc_s over the
@@ -75,6 +79,9 @@ size_t split_smem_bytes(int G, int D) {
 
 size_t join_smem_bytes(int n_splits) { return sizeof(float) * (size_t)n_splits; }
 
+// n rounded up to a power of 2
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -95,9 +102,11 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ part_ml, float* __restrict__ part_acc,
                           int KVH, int G, int page, int NB, int split_len, float scale) {
     constexpr int VEC = 4;                     // elements per 16-byte copy
-    constexpr int LPT = D / VEC;               // lanes (copies) per token row
+    constexpr int CPR = D / VEC;               // copies (16-byte pieces) per token row
+    constexpr int LPT = pow2_ceil(CPR);        // lanes per token row in the scores
     constexpr int TPW = 32 / LPT;              // tokens a warp takes at once
-    constexpr int NCP = CH * LPT;              // copies per chunk, each of K and V
+    constexpr int NCP = CH * CPR;              // copies per chunk, each of K and V
+    static_assert(D % VEC == 0 && LPT <= 32, "a token row's pieces fit one warp");
     extern __shared__ __align__(16) unsigned char smem_raw[];
     float* Ks = reinterpret_cast<float*>(smem_raw);  // [2][CH][D]
     float* Vs = Ks + 2 * CH * D;               // [2][CH][D]
@@ -139,7 +148,7 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
 #pragma unroll
         for (int it = 0; it < PER; ++it) {
             const int i = tid + it * THREADS;
-            const int t = t0 + i / LPT;
+            const int t = t0 + i / CPR;
             off[it] = -1;
             if (i < NCP && t < t_end) off[it] = ((int64_t)trow[t / page] * page + t % page) * tok_stride;
         }
@@ -147,7 +156,7 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
         for (int it = 0; it < PER; ++it) {
             const int i = tid + it * THREADS;
             if (i < NCP) {
-                const int j = i / LPT, c = (i % LPT) * VEC;
+                const int j = i / CPR, c = (i % CPR) * VEC;
                 const bool ok = off[it] >= 0;
                 kernel_common::cp_async16(kd + j * D + c, ok ? kb + off[it] + c : kb, ok ? 16 : 0);
                 kernel_common::cp_async16(vd + j * D + c, ok ? vb + off[it] + c : vb, ok ? 16 : 0);
@@ -169,6 +178,7 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
 
     const int n_chunks = (t_end - t_begin + CH - 1) / CH;
     const int sub = lane / LPT, part = lane % LPT;
+    const bool piece = part < CPR;  // false: a lane past the row's pieces adds 0
     for (int ci = 0; ci < n_chunks; ++ci) {
         const int t0 = t_begin + ci * CH, st = ci % 2;
         const int n_valid = min(CH, t_end - t0);
@@ -183,13 +193,16 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
         // scores: LPT lanes per token, one 16-byte piece of the K row each
         for (int j0 = warp * TPW; j0 < CH; j0 += WARPS * TPW) {
             const int j = j0 + sub;
-            const float4 k4 = *reinterpret_cast<const float4*>(kc + j * D + part * VEC);
+            float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (piece) k4 = *reinterpret_cast<const float4*>(kc + j * D + part * VEC);
             const float kf[VEC] = {k4.x, k4.y, k4.z, k4.w};
             for (int g = 0; g < G; ++g) {
                 const float* qr = Qs + g * D + part * VEC;
                 float a = 0.f;
+                if (piece) {
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) a = fmaf(qr[e], kf[e], a);
+                    for (int e = 0; e < VEC; ++e) a = fmaf(qr[e], kf[e], a);
+                }
 #pragma unroll
                 for (int off = LPT / 2; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
                 if (part == 0) Sc[g * CH + j] = j < n_valid ? a * scale : -INFINITY;
@@ -340,6 +353,7 @@ paged_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     constexpr int NCP = CH * LPT;       // copies per chunk, each of K and V
     constexpr int PER = NCP / THREADS;
     constexpr int NT = D / 8;           // n-tiles of the accumulator
+    static_assert(D % 16 == 0 && NCP % THREADS == 0, "k-steps of 16; every thread a whole number of copies");
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][CH][LD]
     bf16* Vs = Ks + 2 * L::STAGE;                  // [2][CH][LD]
@@ -591,6 +605,7 @@ int dispatch_d(int D, const void* q, const void* kp, const void* vp, const int* 
     switch (D) {
         case 32: return launch<T, 32>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
         case 64: return launch<T, 64>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
+        case 112: return launch<T, 112>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
         case 128: return launch<T, 128>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
@@ -621,10 +636,18 @@ const char* paged_decode_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// shared memory one split block needs (dtype as above)
+// shared memory one split block needs (dtype as above); a head dim with
+// no instance answers SIZE_MAX, so it is never taken to fit
 size_t paged_decode_smem_bytes(int dtype, int G, int D) {
-    if (dtype == 0) return split_smem_bytes(G, D);
-    return D == 32 ? tc::Layout<32>::SMEM : D == 64 ? tc::Layout<64>::SMEM : tc::Layout<128>::SMEM;
+    size_t mma;
+    switch (D) {
+        case 32: mma = tc::Layout<32>::SMEM; break;
+        case 64: mma = tc::Layout<64>::SMEM; break;
+        case 112: mma = tc::Layout<112>::SMEM; break;
+        case 128: mma = tc::Layout<128>::SMEM; break;
+        default: return SIZE_MAX;
+    }
+    return dtype == 0 ? split_smem_bytes(G, D) : mma;
 }
 
 // the split kernel's design for a dtype (as above), the name chip_smoke.py prints

@@ -22,7 +22,7 @@ from .ref import paged_decode_ref
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may use on sm_90
 # the split rule: at most SPLIT_MAX_TOKENS slots per block, so one long
 # sequence is not one block's serial walk; about two blocks per SM when

@@ -48,6 +48,14 @@
 // 64 query rows as a 16 x 8 grid, each thread a 4 x 8 block of scores and
 // a 4 x (DV/8) block of the accumulator; Q, K, V tiles staged in shared
 // memory with 16-byte loads, P through a shared f32 tile.
+//
+// Head dims (instances at the end): 32, 64, 128, MLA's (96, 64) and 112
+// (kimi-k2's 7168 / 64).  A head dim that is no multiple of 64 fills its
+// last swizzled 64-column block in part: Q·Kᵀ's k-steps of 16 stop at D,
+// so they read only the copied columns, and P·V runs at the next wgmma
+// width (n128 for 112) over V columns zero-filled in shared memory past
+// DV (cp.async with a zero source size), whose output columns are never
+// stored.
 
 #include "kernel_common.cuh"
 #include "wgmma.cuh"
@@ -262,8 +270,9 @@ constexpr int MIN_BLOCKS = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // column blocks of 64 in a swizzled tile (wgmma.cuh) and the P·V width:
-// DV 32 runs as n64 over a half-filled V block, its upper 32 output
-// columns discarded (each output column depends on its own V column only)
+// DV 32 runs as n64 and DV 112 as n128, over V columns zero-filled past
+// DV, their upper output columns discarded (each output column depends
+// on its own V column only)
 template <int D> struct Blocks { static constexpr int value = (D + 63) / 64; };
 template <int DV> struct PvN { static constexpr int value = DV <= 64 ? 64 : 128; };
 
@@ -275,16 +284,18 @@ constexpr size_t smem_bytes() {
 }
 
 // copy ROWS rows of COLS elements (row r at src + r * stride) into a
-// swizzled tile of ROWS rows, 16 bytes per cp.async; rows at or past
-// n_rows are zero-filled and read nothing
-template <int ROWS, int COLS>
+// swizzled tile of ROWS rows, 16 bytes per cp.async, and zero-fill its
+// columns COLS..FILL-1; rows at or past n_rows are zero-filled and read
+// nothing
+template <int ROWS, int COLS, int FILL = COLS>
 __device__ __forceinline__ void load_async(bf16* dst, const bf16* src, int64_t stride, int n_rows, int tid) {
-    constexpr int CPR = COLS / 8;  // 16-byte chunks per row
+    static_assert(COLS % 8 == 0 && FILL >= COLS && FILL % 8 == 0, "whole 16-byte chunks");
+    constexpr int CPR = FILL / 8;  // 16-byte chunks per row
     constexpr int N = ROWS * CPR;
 #pragma unroll
     for (int i = tid; i < N; i += THREADS) {
         const int r = i / CPR, c = (i % CPR) * 8;
-        const bool ok = r < n_rows;
+        const bool ok = r < n_rows && c < COLS;
         kernel_common::cp_async16(dst + wgmma::swz(r, c, ROWS), ok ? src + r * stride + c : src, ok ? 16 : 0);
     }
 }
@@ -345,7 +356,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     auto load_kv = [&](int tile) {
         const int k0 = tile * BK, st = tile % STAGES;
         load_async<BK, D>(Ks + st * K_ELEMS, kb + (int64_t)k0 * k_ss, k_ss, Skv - k0, tid);
-        load_async<BK, DV>(Vs + st * V_ELEMS, vb + (int64_t)k0 * v_ss, v_ss, Skv - k0, tid);
+        load_async<BK, DV, NV>(Vs + st * V_ELEMS, vb + (int64_t)k0 * v_ss, v_ss, Skv - k0, tid);
     };
     load_async<BQ, D>(Qs, qb, q_ss, Sq - q0, tid);
 #pragma unroll
@@ -517,7 +528,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     }
 }
 
-// (D, DV) pairs with an instance: D = DV at 32, 64 and 128, and MLA's (96, 64).
+// (D, DV) pairs with an instance (ops.py::HEAD_DIMS): D = DV at 32, 64,
+// 112 and 128, and MLA's (96, 64).
 template <typename T>
 int dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, int B, int H,
                int KVH, int Sq, int Skv, const int64_t* st, int causal, int q_offset,
@@ -530,6 +542,8 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void*
         return launch<T, 128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
     if (D == 96 && DV == 64)
         return launch<T, 96, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
+    if (D == 112 && DV == 112)
+        return launch<T, 112, 112>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, q_offset, scale, stream);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -23,7 +23,7 @@ launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k head dim, v head dim) pairs the kernel is instantiated for
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (96, 64))
 
 
 def _check(q, k, v, q_offset: int) -> None:

@@ -12,6 +12,14 @@ at the reference's shapes, one case per kernel:
                     for the f32 scans
   kernel_ms         on the card only: CUDA-graph replay, median of 5, and
                     ``share_of_bound`` = bound_ms / kernel_ms
+  library_ms        on the card only, the same timer over one PyTorch call
+                    of the same function on the same inputs, where there is
+                    one (a yardstick: the port never calls it):
+                    ``scaled_dot_product_attention`` for flash, and for
+                    paged decode over the pages gathered beforehand into
+                    dense K/V; ``torch.mul(q, s, out=out)`` for dequantize;
+                    None where no one call computes it (quantize's absmax
+                    and quantize, the scans)
 
 The reference runs WKV and SSD in f32, and so does the port: both kernels
 have an f32 instance.  The codec's dequantize, which the reference does
@@ -30,6 +38,7 @@ import statistics
 from typing import Callable, Dict, List
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.decode_attention import paged_decode, paged_decode_ref
 from ..kernels.flash_attention import flash_attention, flash_attention_plain
@@ -106,7 +115,9 @@ def flash_case(device, B=4, S=2048, H=16, KVH=4, D=128):
 
     def run(g):
         q_, k_, v_ = (_randn(s, BF16, device, g) for s in (q, kv, kv))
-        return lambda: flash_attention(q_, k_, v_, causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q_, k_, v_))
+        return (lambda: flash_attention(q_, k_, v_, causal=True),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
 
     return rec, run
 
@@ -129,7 +140,10 @@ def paged_decode_case(device, B=64, H=32, KVH=8, D=128, page=64, NB=512):
 
     def run(g):
         args = inputs(device, g)
-        return lambda: paged_decode(*args)
+        q, kp, vp, tables = args[:4]  # every sequence's kv_len is its whole table: no mask
+        kd, vd = (p[tables.long()].reshape(B, NB * page, KVH, D).transpose(1, 2).contiguous() for p in (kp, vp))
+        return (lambda: paged_decode(*args),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, enable_gqa=True))
 
     return rec, run
 
@@ -140,7 +154,7 @@ def quantize_case(device, T=256, C=8192):
 
     def run(g):
         x = _randn((T, C), BF16, device, g)
-        return lambda: quantize(x)
+        return lambda: quantize(x), None
 
     return rec, run
 
@@ -158,7 +172,8 @@ def dequantize_case(device, T=256, C=8192):
 
     def run(g):
         q, s = inputs(device, g)
-        return lambda: dequantize(q, s, out_dtype=BF16)
+        out = torch.empty((T, C), dtype=BF16, device=device)
+        return lambda: dequantize(q, s, out_dtype=BF16), lambda: torch.mul(q, s, out=out)
 
     return rec, run
 
@@ -182,7 +197,7 @@ def wkv_case(device, B=8, H=32, S=4096, N=64, chunk=32):
 
     def run(g):
         args = inputs(device, g)
-        return lambda: wkv(*args, chunk=chunk)
+        return lambda: wkv(*args, chunk=chunk), None
 
     return rec, run
 
@@ -206,7 +221,7 @@ def ssd_case(device, B=8, S=4096, H=32, P=64, N=64, chunk=64):
 
     def run(g):
         args = inputs(device, g)
-        return lambda: ssd(*args, chunk=chunk)
+        return lambda: ssd(*args, chunk=chunk), None
 
     return rec, run
 
@@ -215,25 +230,29 @@ CASES = (flash_case, paged_decode_case, quantize_case, dequantize_case, wkv_case
 
 
 def run(device="cuda", seed: int = 0, verbose: bool = True) -> List[Dict]:
-    """Every case's record; on a CUDA ``device`` also its kernel's time
-    (the inputs drawn from ``seed`` on the card, freed after each case).
-    On the CPU the byte counts only: the kernels run on the card."""
+    """Every case's record; on a CUDA ``device`` also its kernel's time and
+    its library call's (the inputs drawn from ``seed`` on the card, freed
+    after each case).  On the CPU the byte counts only: the kernels run on
+    the card."""
     dev = resolve_device(device)
     out = []
     for make in CASES:
         rec, build = make(dev)
         if dev.type == "cuda":
             g = torch.Generator(device=dev).manual_seed(seed)
-            call = build(g)
+            call, library = build(g)
+            iters = 3 if rec["bound_ms"] > 1 else 10
             with torch.inference_mode():
-                rec["kernel_ms"] = graph_ms(call, iters=3 if rec["bound_ms"] > 1 else 10)
+                rec["kernel_ms"] = graph_ms(call, iters=iters)
+                rec["library_ms"] = graph_ms(library, iters=iters) if library is not None else None
             rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
-            del call
+            del call, library
             torch.cuda.empty_cache()
         out.append(rec)
         if verbose:
-            t = (f" kernel {rec['kernel_ms']:.4f} ms = {rec['share_of_bound']:.2f} of bound"
-                 if "kernel_ms" in rec else "")
+            lib = rec.get("library_ms")
+            t = (f" kernel {rec['kernel_ms']:.4f} ms = {rec['share_of_bound']:.2f} of bound, library "
+                 f"{'none' if lib is None else f'{lib:.4f} ms'}" if "kernel_ms" in rec else "")
             print(f"{rec['name']:13s} {rec['shape']:44s} {rec['dtype']:8s} oracle {rec['oracle_hbm_bytes'] / 1e9:8.3f} GB "
                   f"-> kernel {rec['kernel_hbm_bytes'] / 1e9:7.3f} GB ({rec['traffic_reduction']:6.1f}x less), "
                   f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}){t}", flush=True)

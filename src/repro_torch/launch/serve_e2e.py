@@ -147,9 +147,11 @@ def greedy_decode(cfg, params, prompt: List[int], n_tokens: int, device,
 
 def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int = 0,
          corpus_size: int = 8, requests_per_stage: int = 6, params=None,
-         verbose: bool = True) -> Dict:
+         verbose: bool = True, cfg=None) -> Dict:
     """Serve the staged workload and decode a few tokens.  ``params`` reuses
-    weights already on the device (else they are drawn from ``seed``).
+    weights already on the device (else they are drawn from ``seed``);
+    ``cfg`` serves that config in place of ``arch``'s (a cut of one: fewer
+    layers at the same widths).
     Every step is captured before the engine starts: the hook's prefill
     and the decode's steps.  Returns per-stage hit and TTFT, every
     request's reuse, the decoded tokens with their inputs and logits, the
@@ -157,7 +159,8 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
     engine's hook, ``greedy_steps``: the decode's)."""
     dev = resolve_device(device)
     say = print if verbose else (lambda *a, **k: None)
-    cfg = get_config(arch, smoke=smoke)
+    if cfg is None:
+        cfg = get_config(arch, smoke=smoke)
     if params is None:
         params = api.init_params(cfg, seed, dev)
     kv_per_tok_elems = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head

@@ -494,10 +494,15 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     ends = torch.cat([first[:, 1:], torch.full((B, 1), S * k, device=dev, dtype=first.dtype)], dim=1)
     slot_ok = (slot < ends[:, e0:e0 + El, None]).reshape(B, El * C)
     slot_flat = torch.clamp(slot, 0, S * k - 1).reshape(B, El * C)
+    # the buffer is masked in place and let go once h is formed (the
+    # reference makes a masked copy and holds both to the end): at kimi-k2's
+    # 128-token prefill it is (1, 384, 1024, 7168) bf16, 5.64 GB, and the
+    # copy and the longer life cost 11.3 GB of device memory at the peak
     buf = _take_rows(xs_sorted, slot_flat)  # (B, El*C, D)
-    buf = buf.masked_fill(~slot_ok[..., None], 0).reshape(B, El, C, D)
+    buf = buf.masked_fill_(~slot_ok[..., None], 0).reshape(B, El, C, D)
 
     h = F.silu(torch.matmul(buf, p["w_gate"])) * torch.matmul(buf, p["w_up"])  # (B,E,C,F)
+    del buf
     y = torch.matmul(h, p["w_down"])  # (B,E,C,D)
 
     # combine: sorted slot j reads y[sorted_e[j], pos_in_e[j]], weighted by

@@ -53,6 +53,10 @@ def _randn(gen, shape, dtype, dev):
     (1, 65, 4096, 8, 2, 128, True),    # q_offset 4031: a 128-row tile with 63 empty rows
     (1, 129, 4096, 8, 2, 128, False),  # two query tiles, the second with one row
     (2, 65, 4096, 16, 16, 64, True),   # D 64, G 1, q_offset 4031
+    (1, 128, 128, 64, 8, 112, True),   # kimi-k2's serve prefill: D 112, a part-filled 64-column block
+    (2, 37, 100, 8, 2, 112, True),     # D 112, q_offset 63, ragged tiles
+    (2, 64, 192, 8, 8, 112, False),    # D 112, non-causal
+    (1, 65, 4096, 64, 8, 112, True),   # D 112 over 64 key tiles, q_offset 4031
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, Sq, Skv, H, KVH, D, causal):
     g = torch.Generator(device=dev).manual_seed(Sq + Skv)
@@ -122,6 +126,9 @@ def test_attention_wrappers_launch_nothing_for_an_empty_part_of_a_head_split(dev
     (2, 32, 1, 64, 16, 6),     # G 32: bf16 runs two groups of 16 query rows
     (3, 48, 2, 128, 16, 9),    # G 24: a full group and a group of 8
     (2, 32, 1, 64, 16, 64),    # G 32 over 32 splits of 32 slots
+    (1, 64, 8, 112, 16, 9),    # kimi-k2's decode: D 112 (7 k-steps, 14 n-tiles; f32: 28 of 32 lanes)
+    (3, 16, 2, 112, 16, 12),   # D 112 with a kv_len = 0 row
+    (2, 64, 8, 112, 16, 256),  # D 112 over up to 4096 slots, several splits
 ])
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, KVH, D, page, NB):
     g = torch.Generator(device=dev).manual_seed(B * 100 + D)
