@@ -67,6 +67,29 @@ Phases, in order, one line each:
                    times that step's replays on the main path: the main
                    path's launches on the card (flash 40 per prefill and
                    paged decode 40 per token for qwen3-14b, gated exact)
+  6a. cluster      the serve phase's workload on its weights over a cache
+                   cluster: launch.serve_e2e.main with a ClusterKVBlockStore
+                   over 3 node processes (python -m
+                   repro_torch.cluster.node: LSM, codec raw, 2 I/O
+                   threads; node 0 with its HTTP metrics endpoint) at
+                   replication 2, as examples/failover.py builds it; hits
+                   exact per stage, launches and replays gated as phase
+                   serve's (flash 40 per prefill, paged decode 40 per
+                   token), every block the hook handed over in the warm-up
+                   read back with get_many bit for bit; then the node
+                   holding the first replica of the first corpus prompt is
+                   SIGKILLed: every committed prefix probes as before, the
+                   blocks read back bit for bit, a fresh engine with empty
+                   device and host tiers serves 8 requests of a corpus
+                   prompt's first 96 tokens and 32 fresh ones (hit exactly
+                   0.75, all 96 tokens from the surviving replicas), a
+                   scrape returns within 5 s with the victim down; the
+                   victim respawns cold on its address, maintenance revives
+                   it, a scrape is clean and node 0's endpoint serves
+                   Prometheus text with the server's counters.  Printed:
+                   TTFT, io and compute ms per stage beside phase serve's,
+                   the bytes written to the nodes, failovers, RPCs and the
+                   phase's seconds
   6b. glm4         full-width glm4-9b (40 layers, d 4096, 32 heads, 2 KV
                    heads) from seed 0 through launch.serve_e2e.main, the
                    serve phase's workload and gates (flash 40 per prefill,
@@ -220,8 +243,8 @@ Phases, in order, one line each:
  20. kernels       one JSON line describing the six kernels: `launches` is
                    the wrappers' count over the main paths' runs (eager
                    launches and launches recorded into graphs at capture;
-                   flash and paged decode summed over the four serve paths,
-                   `by_path` each one's share),
+                   flash and paged decode summed over the five serve paths,
+                   the cluster's among them, `by_path` each one's share),
                    `replayed_launches` the launches the main paths' graph
                    replays ran on the card, from the device trace
 
@@ -766,7 +789,6 @@ def phase_serve(seed, arch=ARCH, phase="serve", cfg=None):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.graphs import WARM_CALLS
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_e2e import main as serve_main
     from repro_torch.models import api
@@ -796,15 +818,7 @@ def phase_serve(seed, arch=ARCH, phase="serve", cfg=None):
         if abs(st["hit"] - st["expect_hit"]) > 1e-9:
             raise AssertionError(f"{phase}: stage {st['stage']} hit {st['hit']}, expected {st['expect_hit']} exactly")
     res["path_steps"] = path_steps(cfg, params, res["prompt"], res["greedy_steps"], res["hook"])
-    captured = {"prefill": len(res["hook"].steps) + 1, "decode": 1}
-    want = expected_launches(cfg, (WARM_CALLS + 1) * captured["prefill"], (WARM_CALLS + 1) * captured["decode"])
-    replays = {kind: sum(r for _, k, _, r, _ in res["path_steps"] if k == kind) for kind in ("prefill", "decode")}
-    if counts != want:
-        raise AssertionError(f"{phase}: launch counts {counts}, expected {want} ({captured} steps captured, "
-                             f"each {WARM_CALLS} warm calls and one capture)")
-    if replays != {"prefill": res["prefills"], "decode": res["decode_steps"]}:
-        raise AssertionError(f"{phase}: replays {replays}, the run made {res['prefills']} prefills and "
-                             f"{res['decode_steps']} decode steps")
+    captured, replays = serve_launch_gates(phase, cfg, res, counts)
     if not bool(torch.isfinite(res["decode_logits"]).all()):
         raise AssertionError(f"{phase}: non-finite decode logits")
     line(phase, wall_s=f"{wall:.2f}", prefills=res["prefills"], decoded=res["decoded"],
@@ -812,6 +826,27 @@ def phase_serve(seed, arch=ARCH, phase="serve", cfg=None):
          steps_captured=json.dumps(captured).replace(" ", ""), replays=json.dumps(replays).replace(" ", ""),
          peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", store_bytes=res["store_bytes"])
     return cfg, params, res, counts
+
+
+def serve_launch_gates(phase, cfg, res, counts):
+    """A serve run's launch gates: the wrappers' ``counts`` exact for the
+    steps captured (each step's warm calls and its capture), and each
+    step's replays (``res["path_steps"]``) those the run made: every
+    prefill of the hook, the decode's prefill and its steps.  Returns the
+    steps captured and the replays."""
+    from repro_torch.graphs import WARM_CALLS
+
+    captured = {"prefill": len(res["hook"].steps) + 1, "decode": 1}
+    want = expected_launches(cfg, (WARM_CALLS + 1) * captured["prefill"], (WARM_CALLS + 1) * captured["decode"])
+    replays = {kind: sum(r for _, k, _, r, _ in res["path_steps"] if k == kind) for kind in ("prefill", "decode")}
+    if counts != want:
+        raise AssertionError(f"{phase}: launch counts {counts}, expected {want} ({captured} steps captured, "
+                             f"each {WARM_CALLS} warm calls and one capture)")
+    ran = {"prefill": res["hook"].calls + 1, "decode": res["decode_steps"]}
+    if replays != ran:
+        raise AssertionError(f"{phase}: replays {replays}, the run made {ran['prefill']} prefills and "
+                             f"{ran['decode']} decode steps")
+    return captured, replays
 
 
 def path_steps(cfg, params, prompt, steps, hook=None, frames=None):
@@ -934,6 +969,201 @@ def phase_decode_check(cfg, params, res, phase="decode-check", table="profile_pr
     profile_prefill(cfg, params, toks, phase=phase, table=table)
     return steps_line(cfg, params, prompt, res["decoded"], res["decode_logits"], res["greedy_steps"],
                       res["path_steps"])
+
+
+CLUSTER_NODES, CLUSTER_REPLICATION = 3, 2  # examples/failover.py's cluster
+CLUSTER_SHARED = 96  # the degraded requests: a corpus prompt's first 96 tokens, then fresh ones
+CLUSTER_SCRAPE_S = 5.0  # a scrape with a dead member returns within this (examples/failover.py)
+
+
+class HookTap:
+    """Wraps the serve hook and keeps a copy of every block list it hands
+    the engine, with the tokens and the reuse it was called with."""
+
+    def __init__(self, hook):
+        self.hook, self.outputs = hook, []
+
+    def __call__(self, tokens, reused):
+        blocks, seconds = self.hook(tokens, reused)
+        self.outputs.append((list(tokens), reused, [b.copy() for b in blocks]))
+        return blocks, seconds
+
+
+def _blocks_read_back(cluster, outputs, block):
+    """The hook calls whose blocks do not read back from ``cluster`` bit
+    for bit (one get_many over all of them)."""
+    got = cluster.get_many([(toks, len(toks)) for toks, _, _ in outputs])
+    bad = []
+    for i, ((toks, reused, want), have) in enumerate(zip(outputs, got)):
+        have = have[reused // block:]
+        if len(have) != len(want) or any(h.dtype != w.dtype or h.tobytes() != w.tobytes()
+                                         for h, w in zip(have, want)):
+            bad.append(i)
+    return bad
+
+
+def phase_cluster(cfg, params, serve_stages, seed=SEED):
+    """Full-width ``cfg`` on phase serve's weights through
+    ``launch.serve_e2e.main`` over a ClusterKVBlockStore of 3 node processes
+    (``python -m repro_torch.cluster.node``: LSM, codec raw, 2 I/O threads,
+    node 0 with its metrics endpoint) at R 2: phase serve's workload,
+    captures and gates.  Every block the hook handed over in the warm-up
+    reads back bit for bit; then the first replica of the first corpus
+    prompt is SIGKILLed: every committed prefix probes as before, the
+    blocks read back, a fresh engine with empty device and host tiers
+    serves a corpus prompt's first 96 tokens and 32 fresh ones per
+    request from the surviving replicas (hit exactly 0.75), and a scrape
+    returns at once with the victim down; the victim respawns cold on its
+    address, maintenance revives it and a scrape is clean; node 0's HTTP
+    endpoint answers with the server's counters.  Launch counters reset
+    just before the serve run and read after the degraded one; the
+    replays of both are read from a device trace.  Returns the launches
+    and the replayed launches."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.cluster import ClusterKVBlockStore, spawn_local_node
+    from repro_torch.launch.serve_e2e import BLOCK, main as serve_main, make_engine
+    from repro_torch.runtime import RuntimeServices
+    from repro_torch.workload.staged import Request
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+
+    def spawn(i, port=0):
+        return spawn_local_node(os.path.join(work, f"node_{i}"), port=port, block_size=BLOCK, codec="raw",
+                                io_threads=2, metrics_port=0 if i == 0 else None)
+
+    nodes, cluster = [], None
+    try:
+        t0 = time.perf_counter()
+        nodes = [spawn(i) for i in range(CLUSTER_NODES)]
+        cluster = ClusterKVBlockStore([n.address for n in nodes], replication=CLUSTER_REPLICATION, io_threads=2,
+                                      retries=1, timeout_s=20.0)
+        line("cluster", nodes=len(nodes), replication=cluster.replication, backend="lsm", codec="raw",
+             addresses=";".join(f"{h}:{p}" for h, p in (n.address for n in nodes)),
+             metrics_port=nodes[0].metrics_port, spawn_s=f"{time.perf_counter() - t0:.2f}")
+
+        taps = []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve_main(arch=cfg.name, device="cuda", seed=seed, params=params, cfg=cfg, store=cluster,
+                         tap=lambda hook: taps.append(HookTap(hook)) or taps[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tap, hook = taps[0], res["hook"]
+        for st, ref in zip(res["stages"], serve_stages):
+            line("cluster", stage=st["stage"], expect_hit=st["expect_hit"], hit=f"{st['hit']:.4f}",
+                 ttft_ms=f"{st['ttft_s'] * 1e3:.3f}", io_ms=f"{st['io_s'] * 1e3:.3f}",
+                 compute_ms=f"{st['compute_s'] * 1e3:.3f}", serve_ttft_ms=f"{ref['ttft_s'] * 1e3:.3f}",
+                 serve_io_ms=f"{ref['io_s'] * 1e3:.3f}", serve_compute_ms=f"{ref['compute_s'] * 1e3:.3f}")
+            if abs(st["hit"] - st["expect_hit"]) > 1e-9:
+                raise AssertionError(f"cluster: stage {st['stage']} hit {st['hit']}, expected {st['expect_hit']} "
+                                     "exactly")
+
+        warm = tap.outputs[:len(res["corpus"])]
+        if sorted(t for t, _, _ in warm) != sorted(res["corpus"]) or any(r for _, r, _ in warm):
+            raise AssertionError("cluster: the hook's first calls were not the warm-up's corpus prompts")
+        n_warm = sum(len(b) for _, _, b in warm)
+        bad = _blocks_read_back(cluster, warm, BLOCK)
+        if bad:
+            raise AssertionError(f"cluster: warm-up prompts {bad} do not read back bit for bit")
+        committed = [cluster.probe(t) for t, _, _ in tap.outputs]
+        stats = cluster.stats
+        rpc = cluster.registry.snapshot()["gauges"]
+        line("cluster", wall_s=f"{wall:.2f}", prefills=res["prefills"], decoded=res["decoded"],
+             warm_blocks=n_warm, warm_read_back="bit_for_bit", put_blocks=stats.put_blocks,
+             payload_bytes_in=stats.payload_bytes_in, disk_bytes=cluster.disk_bytes,
+             rpc_bytes_sent=int(rpc.get("repro_rpc_bytes_sent", 0)), rpcs=int(rpc.get("repro_rpc_rpcs", 0)))
+
+        victim = cluster.replicas_for(res["corpus"][0])[0]
+        nodes[victim].kill()
+        after = [cluster.probe(t) for t, _, _ in tap.outputs]
+        if after != committed:
+            lost = [i for i, (a, b) in enumerate(zip(after, committed)) if a < b]
+            raise AssertionError(f"cluster: committed prefixes {lost} probe shorter after node {victim}'s kill")
+        bad = _blocks_read_back(cluster, warm, BLOCK)
+        if bad:
+            raise AssertionError(f"cluster: warm-up prompts {bad} do not read back bit for bit after the kill")
+
+        rng = np.random.default_rng(seed + 1)
+        fresh = [Request(10_000 + i, 3, p[:CLUSTER_SHARED] + rng.integers(0, 50_000, len(p) - CLUSTER_SHARED).tolist(),
+                         CLUSTER_SHARED / len(p)) for i, p in enumerate(res["corpus"])]
+        runtime = RuntimeServices(io_threads=4)
+        eng = make_engine(cfg, hook, cluster, runtime)  # empty device and host tiers
+        try:
+            for r in fresh:
+                eng.submit(r)
+            recs = eng.run()
+            eng.drain()
+        finally:
+            eng.close()
+        counts = kernels.launch_counts()
+        hits = [r.reused_tokens / r.prompt_len for r in recs]
+        cs = cluster.cluster_stats
+        line("cluster", what="degraded", victim=victim, down=cluster.down_nodes, requests=len(recs),
+             hits=sorted(set(hits)), ttft_ms=f"{np.mean([r.ttft_s for r in recs]) * 1e3:.3f}",
+             io_ms=f"{np.mean([r.io_s for r in recs]) * 1e3:.3f}",
+             compute_ms=f"{np.mean([r.compute_s for r in recs]) * 1e3:.3f}",
+             hit_tiers_d_h_d=f"{eng.h.stats.tokens_hit_device}/{eng.h.stats.tokens_hit_host}/"
+                             f"{eng.h.stats.tokens_hit_disk}",
+             failovers=cs.failovers, degraded_reads=cs.degraded_reads)
+        if len(recs) != len(fresh) or any(h != CLUSTER_SHARED / len(p) for h, p in zip(hits, res["corpus"])):
+            raise AssertionError(f"cluster: degraded hits {hits}, expected {CLUSTER_SHARED / PROMPT} each")
+        if eng.h.stats.tokens_hit_disk != CLUSTER_SHARED * len(fresh):
+            raise AssertionError(f"cluster: {eng.h.stats.tokens_hit_disk} tokens came from the cluster, expected "
+                                 f"{CLUSTER_SHARED * len(fresh)}")
+
+        t0 = time.perf_counter()
+        scrape = cluster.scrape_cluster()
+        scrape_s = time.perf_counter() - t0
+        if (victim not in scrape["down"] or not scrape["nodes"][victim].get("unreachable")
+                or scrape_s > CLUSTER_SCRAPE_S
+                or any(scrape["nodes"][i].get("unreachable") for i in range(len(nodes)) if i != victim)):
+            raise AssertionError(f"cluster: the degraded scrape took {scrape_s:.3f} s, down {scrape['down']}, "
+                                 f"victim {victim}")
+
+        host, port = nodes[victim].address
+        nodes[victim].close()
+        shutil.rmtree(nodes[victim].root, ignore_errors=True)  # a cold restart, as examples/failover.py's
+        nodes[victim] = spawn(victim, port)
+        revived = cluster.maintenance(0)["revived"]
+        healed = cluster.scrape_cluster()
+        if revived != [victim] or cluster.down_nodes or healed["down"] or any(
+                nd.get("unreachable") for nd in healed["nodes"].values()):
+            raise AssertionError(f"cluster: revived {revived}, down {cluster.down_nodes}, scrape down "
+                                 f"{healed['down']}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{nodes[0].metrics_port}/metrics", timeout=10) as resp:
+            text = resp.read().decode()
+        if "repro_server_requests" not in text or "# TYPE repro_node_request_seconds histogram" not in text:
+            raise AssertionError("cluster: node 0's metrics endpoint lacks the server's counters")
+        g = healed["cluster"]["gauges"]
+        line("cluster", what="scrape", degraded_scrape_ms=f"{scrape_s * 1e3:.3f}", revived=revived,
+             failovers=int(g["repro_cluster_failovers"]), rpcs=int(g["repro_rpc_rpcs"]),
+             rpc_bytes_sent=int(g["repro_rpc_bytes_sent"]), live=int(g["repro_cluster_live"]),
+             repairs=int(g.get("repro_migration_repairs_completed", 0)),
+             http_metrics_bytes=len(text), http_requests=next(
+                 (ln.split()[-1] for ln in text.splitlines() if ln.startswith("repro_server_requests")), None))
+
+        res["path_steps"] = path_steps(cfg, params, res["prompt"], res["greedy_steps"], hook)
+        captured, replays = serve_launch_gates("cluster", cfg, res, counts)
+        _, replayed, failed = path_replays(cfg, res["path_steps"])
+        if failed:
+            raise AssertionError("cluster: " + "; ".join(failed))
+        line("cluster", launches=_nonzero(counts), steps_captured=json.dumps(captured).replace(" ", ""),
+             replays=json.dumps(replays).replace(" ", ""), path_replayed_launches=_nonzero(replayed),
+             phase_s=f"{time.perf_counter() - t_phase:.2f}")
+        return counts, replayed
+    finally:
+        if cluster is not None:
+            cluster.close()
+        for n in nodes:
+            n.close()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def profile_prefill(cfg, params, toks, phase: str = "profile", table: str = "profile_prefill.txt", frames=None):
@@ -1080,21 +1310,8 @@ def steps_line(cfg, params, prompt, graph_tokens, graph_logits, steps, path, fra
                                 f"{cfg.name}: one warm {len(prompt)}-token prefill, {label}, under torch.profiler")
             for label, fn in (("eager", e_prefill), ("graph", g_prefill))}
 
-    per_replay, replayed, ran = {}, dict.fromkeys(KERNELS, 0), {"prefill": 0, "decode": 0}
-    for label, kind, step, replays, call in path:
-        traced = traced_launches(run(call))
-        want = expected_launches(cfg, 1, 0) if kind == "prefill" else expected_launches(cfg, 0, 1)
-        if traced != want or traced != step.launches:
-            failed.append(f"{label}: launches per replay {_nonzero(traced)} in the trace, captured "
-                          f"{_nonzero(step.launches)}, want {_nonzero(want)}")
-        per_replay[label] = traced
-        ran[kind] += replays
-        for k in replayed:
-            replayed[k] += traced[k] * replays
-    want_path = expected_launches(cfg, ran["prefill"], ran["decode"])
-    if replayed != want_path:
-        failed.append(f"the main path's replays ran {_nonzero(replayed)}, want {_nonzero(want_path)} "
-                      f"({ran['prefill']} prefills, {ran['decode']} decode steps)")
+    per_replay, replayed, path_failed = path_replays(cfg, path)
+    failed += path_failed
     steps_p, steps_d = steps.prefill, steps.decode
     line("steps", arch=cfg.name, tokens_equal=eager_tokens == graph_tokens, logit_gap=f"{gap:.4e}",
          max_abs_logit=f"{scale:.4f}", tol=f"{STEPS_LOGIT_REL_TOL}*max|logit|={STEPS_LOGIT_REL_TOL * scale:.4f}",
@@ -1117,6 +1334,40 @@ def steps_line(cfg, params, prompt, graph_tokens, graph_logits, steps, path, fra
     if failed:
         raise AssertionError(f"steps {cfg.name}: " + "; ".join(failed))
     return replayed, timing
+
+
+def path_replays(cfg, path):
+    """One replay of every captured step a main path ran (``path``, from
+    ``path_steps``) under torch.profiler: its launches per replay, gated
+    exact and equal to what its capture recorded, times its replays on
+    the path.  Returns the launches per replay by label, the path's
+    replayed launches (gated exact for its prefills and decode steps) and
+    the gates that failed."""
+    import torch
+
+    per_replay, replayed, ran, failed = {}, dict.fromkeys(KERNELS, 0), {"prefill": 0, "decode": 0}, []
+
+    def once(call):
+        def replay():
+            with torch.inference_mode():
+                call()
+        return replay
+
+    for label, kind, step, replays, call in path:
+        traced = traced_launches(once(call))
+        want = expected_launches(cfg, 1, 0) if kind == "prefill" else expected_launches(cfg, 0, 1)
+        if traced != want or traced != step.launches:
+            failed.append(f"{label}: launches per replay {_nonzero(traced)} in the trace, captured "
+                          f"{_nonzero(step.launches)}, want {_nonzero(want)}")
+        per_replay[label] = traced
+        ran[kind] += replays
+        for k in replayed:
+            replayed[k] += traced[k] * replays
+    want_path = expected_launches(cfg, ran["prefill"], ran["decode"])
+    if replayed != want_path:
+        failed.append(f"the main path's replays ran {_nonzero(replayed)}, want {_nonzero(want_path)} "
+                      f"({ran['prefill']} prefills, {ran['decode']} decode steps)")
+    return per_replay, replayed, failed
 
 
 def _nonzero(counts):
@@ -3059,8 +3310,9 @@ def phase_kernels_micro():
 def kernels_line(recs, counts, replayed, by_path=None):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main paths that run it: the serve paths for flash and
-    paged_decode (qwen3-14b, qwen2.5-32b, chameleon-34b and kimi-k2, each
-    counted from 0 just before it), the codec's entry points over the
+    paged_decode (qwen3-14b over the sharded store and over the cluster,
+    qwen2.5-32b, chameleon-34b and kimi-k2, each counted from 0 just
+    before it), the codec's entry points over the
     serve blocks and the latent slab for quantize and dequantize,
     rwkv6-1.6b for wkv, zamba2-1.2b for ssd.  ``replayed`` maps each
     kernel to the launches the same paths' CUDA-graph replays ran, read
@@ -3125,6 +3377,7 @@ def main() -> int:
     ssd = phase_ssd()
     cfg, params, res, counts = phase_serve(SEED)
     serve_replayed, serve_times = phase_decode_check(cfg, params, res)
+    cluster_counts, cluster_replayed = phase_cluster(cfg, params, res["stages"])
     # the KV blocks one 128-token prefill hands to the store, for the codec
     serve_blocks, _ = res["hook"](res["prompt"], 0)
     del params, res  # the steps hold the weights
@@ -3146,7 +3399,8 @@ def main() -> int:
     phase_dryrun(step_ms, serve_times, cells)
     phase_kernels_micro()
     # the serve paths' attention launches: qwen3-14b's, then the full cells'
-    serve_paths = [("qwen3-14b", counts, serve_replayed)] + [(c["phase"], c["counts"], c["replayed"]) for c in cells]
+    serve_paths = ([("qwen3-14b", counts, serve_replayed), ("cluster", cluster_counts, cluster_replayed)]
+                   + [(c["phase"], c["counts"], c["replayed"]) for c in cells])
     by_path = {k: {p: {"launches": c[k], "replayed_launches": r[k]} for p, c, r in serve_paths}
                for k in ("flash", "paged_decode")}
     path_counts = {"flash": sum(c["flash"] for _, c, _ in serve_paths),

@@ -5,7 +5,9 @@ through the full stack —
                        I/O executor; write-behind commits; off-path
                        maintenance)
                     -> CacheHierarchy (radix + tiers; plan/fetch/fulfill)
-                    -> ShardedKVBlockStore (4 LSM shards on real disk)
+                    -> ShardedKVBlockStore (4 LSM shards on real disk), or
+                       any other StorageBackend the caller passes (a
+                       ClusterKVBlockStore over node processes)
                     -> real prefill and greedy decode on the device, through
                        the flash and paged decode kernels, each step
                        captured as a CUDA graph (repro_torch.graphs.capture)
@@ -145,35 +147,49 @@ def greedy_decode(cfg, params, prompt: List[int], n_tokens: int, device,
     return tokens, fed_list, torch.stack(logit_rows)
 
 
+def make_engine(cfg, hook, store, runtime: RuntimeServices) -> ServingEngine:
+    """The engine ``main`` serves with: empty device and host tiers over
+    ``store``, prefills through ``hook``."""
+    h = CacheHierarchy(BLOCK, device_budget_blocks=64, host_budget_blocks=128, store=store)
+    kv_per_tok_elems = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head
+    return ServingEngine(h, ComputeModel(cfg), kv_bytes_per_token=kv_per_tok_elems * 2,
+                         max_batch_tokens=2048, real_prefill=hook, runtime=runtime)
+
+
 def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int = 0,
          corpus_size: int = 8, requests_per_stage: int = 6, params=None,
-         verbose: bool = True, cfg=None) -> Dict:
+         verbose: bool = True, cfg=None, store=None, tap=None) -> Dict:
     """Serve the staged workload and decode a few tokens.  ``params`` reuses
     weights already on the device (else they are drawn from ``seed``);
     ``cfg`` serves that config in place of ``arch``'s (a cut of one: fewer
-    layers at the same widths).
+    layers at the same widths).  ``store`` is the disk tier, a
+    ``StorageBackend`` the caller owns and closes (else a 4-shard
+    ``ShardedKVBlockStore`` in a temporary directory, closed here);
+    ``tap(hook)`` returns the callable the engine is given in place of the
+    hook (a caller records what the hook hands over).
     Every step is captured before the engine starts: the hook's prefill
     and the decode's steps.  Returns per-stage hit and TTFT, every
     request's reuse, the decoded tokens with their inputs and logits, the
-    number of prefills the run made, and the steps (``hook``: the
-    engine's hook, ``greedy_steps``: the decode's)."""
+    number of prefills the run made, the corpus the warm-up served, and
+    the steps (``hook``: the engine's hook, ``greedy_steps``: the
+    decode's)."""
     dev = resolve_device(device)
     say = print if verbose else (lambda *a, **k: None)
     if cfg is None:
         cfg = get_config(arch, smoke=smoke)
     if params is None:
         params = api.init_params(cfg, seed, dev)
-    kv_per_tok_elems = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head
     hook = make_real_prefill(cfg, params, BLOCK, dev, lengths=(PROMPT,))
     greedy_steps = make_greedy_steps(cfg, params, PROMPT, DECODE_TOKENS, dev)
 
-    root = tempfile.mkdtemp(prefix="serve_e2e_")
     runtime = RuntimeServices(io_threads=4)
-    store = ShardedKVBlockStore(root, n_shards=N_SHARDS, block_size=BLOCK,
-                                io_executor=runtime.executor)
-    h = CacheHierarchy(BLOCK, device_budget_blocks=64, host_budget_blocks=128, store=store)
-    eng = ServingEngine(h, ComputeModel(cfg), kv_bytes_per_token=kv_per_tok_elems * 2,
-                        max_batch_tokens=2048, real_prefill=hook, runtime=runtime)
+    root = None
+    if store is None:
+        root = tempfile.mkdtemp(prefix="serve_e2e_")
+        store = ShardedKVBlockStore(root, n_shards=N_SHARDS, block_size=BLOCK,
+                                    io_executor=runtime.executor)
+    eng = make_engine(cfg, hook if tap is None else tap(hook), store, runtime)
+    h = eng.h
     try:
         wl = StagedWorkload(prompt_len=PROMPT, requests_per_stage=requests_per_stage,
                             stages=(0.0, 0.5, 0.75), block_size=BLOCK,
@@ -207,7 +223,9 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
                                          steps=greedy_steps)
         decode_s = time.perf_counter() - t0
         say(f"decoded {DECODE_TOKENS} tokens: {out}")
-        say(f"store: shards={store.n_shards} files/shard={store.shard_file_counts()} "
+        layout = (f"shards={store.n_shards} files/shard={store.shard_file_counts()}"
+                  if isinstance(store, ShardedKVBlockStore) else f"{store.name} files={store.file_count}")
+        say(f"store: {layout} "
             f"bytes={store.disk_bytes} compression={store.stats.compression_ratio:.2f}x "
             f"hit-tiers d/h/d={h.stats.tokens_hit_device}/"
             f"{h.stats.tokens_hit_host}/{h.stats.tokens_hit_disk}")
@@ -219,12 +237,13 @@ def main(arch: str = "qwen3-14b", smoke: bool = False, device="cuda", seed: int 
         return {
             "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(dev),
             "stages": stages, "requests": requests, "decoded": out, "decode_inputs": fed, "decode_logits": logits,
-            "decode_s": decode_s, "prompt": wl.corpus[0][:PROMPT],
+            "decode_s": decode_s, "prompt": wl.corpus[0][:PROMPT], "corpus": [p[:PROMPT] for p in wl.corpus],
             # the engine's prefills plus the one in front of the decode
             "prefills": hook.calls + 1, "decode_steps": DECODE_TOKENS,
             "store_bytes": store.disk_bytes, "hook": hook, "greedy_steps": greedy_steps,
         }
     finally:
         eng.close()
-        store.close()
-        shutil.rmtree(root, ignore_errors=True)
+        if root is not None:
+            store.close()
+            shutil.rmtree(root, ignore_errors=True)

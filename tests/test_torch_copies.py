@@ -1,8 +1,8 @@
 """The port keeps byte-identical copies of the reference's jax-free modules
-(configs, core, cache, runtime, obs, workload, serving/engine,
-training/data).  Each pair
-is read as bytes and compared; neither is imported, so drift in either
-package shows here."""
+(configs, core, cache, runtime, obs, workload, cluster, serving/engine,
+training/data), and ``cluster/node.py`` differs from the reference's only
+in the module it runs.  Each pair is read as bytes and compared; neither
+is imported, so drift in either package shows here."""
 
 from pathlib import Path
 
@@ -14,14 +14,17 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 def _copied():
     files = []
-    for pkg in ("configs", "core", "runtime", "workload"):
-        files += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py"))
+    for pkg in COPIED_PACKAGES:
+        files += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py")
+                        if p.relative_to(REF).as_posix() != NODE)
     files += ["cache/__init__.py", "cache/radix.py", "cache/hierarchy.py",
-              "obs/__init__.py", "obs/metrics.py", "obs/tracing.py", "serving/engine.py",
-              "training/data.py"]
+              "obs/__init__.py", "obs/metrics.py", "obs/tracing.py", "obs/catalog.py", "obs/httpd.py",
+              "serving/engine.py", "training/data.py"]
     return files
 
 
+COPIED_PACKAGES = ("configs", "core", "runtime", "workload", "cluster")
+NODE = "cluster/node.py"  # a port: it runs the port's node module, not the reference's
 COPIED = _copied()
 
 
@@ -32,14 +35,27 @@ def test_copy_is_byte_identical(rel):
     assert port.read_bytes() == ref.read_bytes(), f"repro_torch/{rel} drifted from repro/{rel}"
 
 
+def test_node_is_the_references_but_for_the_module_it_runs():
+    """``cluster/node.py`` after the one substitution of the module it
+    runs (and the docstrings that name it) is the reference's, byte for
+    byte."""
+    ref, port = (REF / NODE).read_text(), (PORT / NODE).read_text()
+    assert '"-m", "repro_torch.cluster.node"' in port and '"-m", "repro.cluster.node"' not in port
+    assert port == ref.replace("repro.cluster.node", "repro_torch.cluster.node")
+
+
 def test_copy_list_covers_the_packages():
-    """Every module of the copied packages is in the list, and the two
-    modules left out of obs (they pull in cluster/) are absent."""
-    for pkg in ("configs", "core", "runtime", "workload"):
+    """Every module of the copied packages is in the list (cluster's node
+    through the test above), and every module of obs is copied, the
+    metric catalog and the HTTP endpoint among them."""
+    for pkg in COPIED_PACKAGES:
+        ref_files = {p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py")}
         port_files = {p.relative_to(PORT).as_posix() for p in (PORT / pkg).glob("*.py")}
-        assert port_files == {f for f in COPIED if f.startswith(pkg + "/")}
-    assert not (PORT / "obs" / "catalog.py").exists()
-    assert not (PORT / "obs" / "httpd.py").exists()
+        assert port_files == ref_files == {f for f in COPIED if f.startswith(pkg + "/")} | ({NODE} & ref_files)
+    assert len([f for f in COPIED if f.startswith("cluster/")]) == 8
+    assert {p.name for p in (REF / "obs").glob("*.py")} == {p.name for p in (PORT / "obs").glob("*.py")}
+    assert {"obs/catalog.py", "obs/httpd.py"} <= set(COPIED)
+    assert (PORT / "obs" / "catalog.py").exists() and (PORT / "obs" / "httpd.py").exists()
 
 
 def _block(text: str, start: str) -> str:

@@ -3,7 +3,9 @@ smoke prefill runs on the CPU, with ``jax``, ``repro`` and ``ml_dtypes``
 blocked.  Also the kernel build's command line and its refusal to fall
 back when no CUDA toolkit is there."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -188,13 +190,43 @@ def test_dry_run_tools_run_with_jax_repro_and_benchmarks_blocked(tmp_path):
     assert out.stdout.split()[-1] == "ok"
 
 
+_REF_MODULE = re.compile(r"^(jax|jaxlib|repro)(\.\w+)*$")
+_RUNS_REF = re.compile(r"(^|\s)-m\s+(jax|jaxlib|repro)(\.|\s|$)")
+
+
+def _modules_named_to_run(source: str):
+    """The string constants of ``source``'s code, docstrings aside, that
+    name a module of jax or of the reference: a whole dotted module name
+    (as after ``"-m"``, or given to ``runpy`` or ``importlib``), or a
+    command line with ``-m repro...``."""
+    tree = ast.parse(source)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+            and (_REF_MODULE.match(node.value) or _RUNS_REF.search(node.value))]
+
+
 def test_no_module_of_the_port_names_jax_or_the_reference():
+    """No module of the port imports jax or the reference, nor names one
+    of their modules as a string to run or import: a verbatim copy of the
+    reference's ``cluster/node.py`` imports nothing of it, yet would start
+    the reference's node in a child process."""
+    ref_node = (SRC / "repro" / "cluster" / "node.py").read_text()
+    assert _modules_named_to_run(ref_node) == ["repro.cluster.node"]
+    assert _modules_named_to_run('runpy.run_module("repro.launch.serve")') == ["repro.launch.serve"]
+    command = "python -m repro.cluster.node --root d"
+    assert _modules_named_to_run(f"cmd = {command!r}") == [command]
+    assert _modules_named_to_run((SRC / "repro_torch" / "cluster" / "node.py").read_text()) == []
     for path in (SRC / "repro_torch").rglob("*.py"):
-        for line in path.read_text().splitlines():
+        text = path.read_text()
+        for line in text.splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
                 assert "jax" not in stripped and "repro." not in stripped.replace("repro_torch", ""), \
                     f"{path}: {stripped}"
+        assert _modules_named_to_run(text) == [], path
 
 
 def test_kernel_build_command_targets_hopper():
