@@ -205,12 +205,24 @@ Phases, in order, one line each:
                    vocabulary columns a rank), each rank's loss and every
                    gradient leaf gated against one process's (rtol 1e-5,
                    atol = rtol 1e-4), each step's ms and the gradient
-                   sum over model alone; (b) launch/train.main --full
-                   --layers 2 --data 1 --model 2 on the same two ranks in
-                   bf16, its 2 losses against the --model 1 run's in a
-                   fresh process (rtol 1e-3, TP_LAUNCH_RTOL's reason).
-                   Gloo stages every collective through host memory, so
-                   its times say nothing of NVLink
+                   sum over model alone; (c) on the same ranks, the
+                   same model and batch with remat and seq_shard on (the
+                   residual stream split over sequence: each rank holds
+                   64 of the 128 rows between blocks, all-gathers where a
+                   split begins, reduce-scatters where it ends), gated
+                   against the same one-process file at (a)'s
+                   tolerances, with its step ms, the collective bytes by
+                   kind each rank sent and its peak allocated GB beside
+                   the same step with seq_shard off, then lower_cell's
+                   predicted temp and peak bytes for the train step at
+                   (1, 2) (bf16, AdamW; counts, not measurements); (b)
+                   launch/train.main --full --layers 2 --data 1 --model 2
+                   on the same two ranks in bf16 (seq_shard off, as the
+                   reference's launcher runs), its 2 losses against the
+                   --model 1 run's in a fresh process (rtol 1e-3,
+                   TP_LAUNCH_RTOL's reason).  Gloo stages every
+                   collective through host memory, so its times say
+                   nothing of NVLink
  18. dryrun        the dry run (launch.steps.lower_cell: each step traced on
                    meta tensors in this process under the cost counter,
                    launch/cost.py; no device) beside this run's own
@@ -224,7 +236,11 @@ Phases, in order, one line each:
                    with_flops total (gated within 1 %); (c) qwen3-14b x
                    train_4k and glm4-9b x decode_32k at full width on the
                    (16, 16) mesh through launch/dryrun.py in subprocesses,
-                   each record printed (gated ok, FLOPs and bytes > 0);
+                   each record printed (gated ok, FLOPs and bytes > 0),
+                   and the train record's seq_shard, temp and peak bytes
+                   and model-axis collective bytes by kind beside the
+                   counts of the whole-stream step (79.45 GB, 80.03 GB,
+                   325.7 GB of all-reduce; DRYRUN_WHOLE_STREAM);
                    (d) phase 6c's cells at (a)'s shapes, each step's
                    predicted peak bytes beside its phase's measured peak
                    and the card's memory (printed, not gated).
@@ -2957,6 +2973,20 @@ def _tp_launch_one(root: str, result: str):
         json.dump({"losses": res["losses"], "s": time.perf_counter() - t0}, f)
 
 
+def _worst_leaf(params, grads, ref_grads):
+    """(|g - want| - (atol + rtol |want|), max |g - want|, leaf) at the
+    worst entry of the worst leaf, TP_GRAD_TOL as atol and rtol."""
+    import torch
+
+    per_leaf = []
+    for (name, _), g, want in zip(_named_leaves(params), grads, ref_grads):
+        want = want.to("cuda")
+        gap = torch.sub(g, want).abs_()
+        worst_gap = float(gap.max())
+        per_leaf.append((float(gap.sub_(want.abs_().mul_(TP_GRAD_TOL).add_(TP_GRAD_TOL)).max()), worst_gap, name))
+    return max(per_leaf)
+
+
 def _tp_rank_grads(root: str, mesh):
     """(a) on one rank: the loss and gradients of ``_tp_reference``'s
     model through ``make_grad_fn`` under ``mesh``, the second of two calls
@@ -2980,13 +3010,7 @@ def _tp_rank_grads(root: str, mesh):
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     ref = torch.load(os.path.join(root, "ref.pt"), mmap=True)
     out["loss"], out["loss_ref"] = float(loss), ref["loss"]
-    per_leaf = []  # (|g - want| - (atol + rtol |want|), max |g - want|, leaf) at the worst entry
-    for (name, _), g, want in zip(_named_leaves(params), grads, ref["grads"]):
-        want = want.to("cuda")
-        gap = torch.sub(g, want).abs_()
-        worst_gap = float(gap.max())
-        per_leaf.append((float(gap.sub_(want.abs_().mul_(TP_GRAD_TOL).add_(TP_GRAD_TOL)).max()), worst_gap, name))
-    out["worst_excess"], out["worst_gap"], out["worst_leaf"] = max(per_leaf)
+    out["worst_excess"], out["worst_gap"], out["worst_leaf"] = _worst_leaf(params, grads, ref["grads"])
     out["leaves"] = len(grads)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2996,11 +3020,87 @@ def _tp_rank_grads(root: str, mesh):
     return out
 
 
+_COLLECTIVE_CALLS = {"all_reduce": ("all-reduce", 0), "all_gather_into_tensor": ("all-gather", 1),
+                     "reduce_scatter_tensor": ("reduce-scatter", 1)}
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """``with _counting_collectives() as sent:`` the bytes this process hands
+    ``dist.all_reduce``, ``dist.all_gather_into_tensor`` and
+    ``dist.reduce_scatter_tensor``, by kind, in the dry run's convention
+    (``launch/cost.py``: an all-reduce's buffer, the others' input; a
+    group of one rank moves nothing)."""
+    import torch.distributed as dist
+
+    sent, originals = {}, {name: getattr(dist, name) for name in _COLLECTIVE_CALLS}
+
+    def counted(name):
+        kind, at = _COLLECTIVE_CALLS[name]
+
+        def call(*args, **kwargs):
+            if dist.get_world_size(kwargs.get("group")) > 1:
+                sent[kind] = sent.get(kind, 0) + args[at].numel() * args[at].element_size()
+            return originals[name](*args, **kwargs)
+
+        return call
+
+    for name in _COLLECTIVE_CALLS:
+        setattr(dist, name, counted(name))
+    try:
+        yield sent
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def _tp_seq_grads(root: str, mesh):
+    """(c) on one rank: ``_tp_reference``'s model with remat and
+    ``seq_shard`` on (the residual stream split over sequence between
+    blocks) through ``make_grad_fn`` under ``mesh``, its collectives
+    counted by kind and its peak memory read on the first of two calls and
+    the second timed, gated per leaf against the one-process file as (a)
+    is; then one call of the same step with ``seq_shard`` off (remat on):
+    its collectives, peak memory and ms (a first call, so not warm)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training.loop import make_grad_fn
+
+    out = {}
+    for on in (True, False):
+        cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_LAYERS, remat=True, seq_shard=on)
+        params = f32_tree(api.init_params(cfg, SEED, "cuda"))
+        batch, grad_fn = _train_batch(cfg, 0), make_grad_fn(cfg, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _counting_collectives() as sent:
+            loss, _, grads, ms = _tp_grad_ms(grad_fn, params, batch)
+        key = "on" if on else "off"
+        out[f"peak_mem_gb_{key}"] = torch.cuda.max_memory_allocated() / 1e9
+        if on:  # the first call is counted and its peak read; the second, warm, is timed
+            del grads
+            loss, _, grads, ms = _tp_grad_ms(grad_fn, params, batch)
+        out[f"step_ms_{key}"], out[f"collective_bytes_{key}"] = ms, sent
+        if on:
+            ref = torch.load(os.path.join(root, "ref.pt"), mmap=True)
+            out["loss"], out["loss_ref"] = float(loss), ref["loss"]
+            out["worst_excess"], out["worst_gap"], out["worst_leaf"] = _worst_leaf(params, grads, ref["grads"])
+            out["leaves"] = len(grads)
+        del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tp_rank(rank: int, store: str, root: str):
     """One of TP_RANKS gloo ranks on the one card, at (data, model) = (1,
-    TP_RANKS): (a) ``_tp_rank_grads``; (b) ``launch/train.main --full
-    --layers TP_LAYERS --data 1 --model TP_RANKS``.  Writes its results,
-    its kernel launch counts among them, to ``root/rank<r>.json``."""
+    TP_RANKS): (a) ``_tp_rank_grads``; (c) ``_tp_seq_grads``; (b)
+    ``launch/train.main --full --layers TP_LAYERS --data 1 --model
+    TP_RANKS``.  Writes its results, its kernel launch counts among them,
+    to ``root/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -3026,6 +3126,15 @@ def _tp_rank(rank: int, store: str, root: str):
              peak_mem_gb=f"{out['peak_mem_gb']:.2f}",
              gates=f"loss_rtol{TP_LOSS_RTOL}_atol{TP_LOSS_ATOL},grads_atol=rtol{TP_GRAD_TOL}")
         torch.cuda.empty_cache()
+        seq = out["seq"] = _tp_seq_grads(root, make_smoke_mesh(1, TP_RANKS, device="cuda"))
+        line("tensor-parallel", part="c", rank=rank, seq_shard=True, remat=True, loss=f"{seq['loss']:.7f}",
+             loss_one_process=f"{seq['loss_ref']:.7f}", leaves=seq["leaves"], worst_leaf=seq["worst_leaf"],
+             worst_abs_gap=f"{seq['worst_gap']:.3e}", worst_excess_over_tol=f"{seq['worst_excess']:.3e}",
+             step_ms=f"{seq['step_ms_on']:.1f}", first_call_ms_seq_shard_off=f"{seq['step_ms_off']:.1f}",
+             collective_bytes=json.dumps(seq["collective_bytes_on"]).replace(" ", ""),
+             collective_bytes_seq_shard_off=json.dumps(seq["collective_bytes_off"]).replace(" ", ""),
+             peak_mem_gb=f"{seq['peak_mem_gb_on']:.3f}", peak_mem_gb_seq_shard_off=f"{seq['peak_mem_gb_off']:.3f}",
+             gates=f"loss_rtol{TP_LOSS_RTOL}_atol{TP_LOSS_ATOL},grads_atol=rtol{TP_GRAD_TOL}")
         t0 = time.perf_counter()
         res = launcher.main(["--full", "--layers", str(TP_LAYERS), "--steps", str(TP_STEPS), "--ckpt-every",
                              str(TP_STEPS), "--ckpt-dir", os.path.join(root, "tp"), "--data", "1", "--model",
@@ -3042,11 +3151,16 @@ def phase_tensor_parallel():
     """Tensor parallelism over ``model`` on the card: (a) full-width
     qwen3-14b, TP_LAYERS of 40 layers, f32: one process's loss and
     gradients, then TP_RANKS spawned gloo ranks at (1, TP_RANKS) on CUDA
-    tensors, each gated against them leaf by leaf; (b) ``launch/train.main
-    --model TP_RANKS`` in bf16 against ``--model 1``.  No kernel launches,
-    in this process or on any rank (gated).  Step times are over gloo
-    through host memory (NCCL takes one rank a card), so they say nothing
-    of NVLink."""
+    tensors, each gated against them leaf by leaf; (c) on the same ranks,
+    the same model with remat and ``seq_shard`` on (the residual stream
+    split over sequence), gated against the same file, with its
+    collective bytes by kind and its peak memory beside the same step
+    with ``seq_shard`` off, and ``lower_cell``'s prediction for the step
+    at (1, TP_RANKS) (bf16, AdamW: the train step it traces); (b)
+    ``launch/train.main --model TP_RANKS`` in bf16 against ``--model 1``.
+    No kernel launches, in this process or on any rank (gated).  Step
+    times are over gloo through host memory (NCCL takes one rank a card),
+    so they say nothing of NVLink."""
     import dataclasses
     import multiprocessing
     import tempfile
@@ -3083,6 +3197,19 @@ def phase_tensor_parallel():
         for r in range(TP_RANKS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
                 outs.append(json.load(f))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import steps
+
+    lowered = steps.lower_cell(AbstractMesh((1, TP_RANKS), ("data", "model")), cfg,
+                               ShapeConfig("tp_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    mem = lowered.memory_analysis()
+    line("tensor-parallel", part="c", what="lower_cell_prediction_bf16_AdamW_step", mesh=f"data1_model{TP_RANKS}",
+         seq_shard=lowered.seq_shard, temp_gb=f"{mem['temp_size_in_bytes'] / 1e9:.3f}",
+         peak_gb=f"{mem['peak_bytes_per_device'] / 1e9:.3f}", held_peak_gb=f"{mem['held_peak_bytes'] / 1e9:.3f}",
+         collective_bytes=json.dumps({a: dict(k) for a, k in lowered.totals.coll_bytes_by_axis_op.items()})
+         .replace(" ", ""), measured_peak_gb_f32_grads=f"{outs[0]['seq']['peak_mem_gb_on']:.3f}",
+         note="counts_on_meta_not_a_chip_measurement")
     losses = outs[0]["launch_losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
     line("tensor-parallel", part="b", check=f"launch/train.main --full --layers {TP_LAYERS} --data 1 --model "
@@ -3095,11 +3222,16 @@ def phase_tensor_parallel():
          seconds=f"{time.perf_counter() - t0:.1f}")
     torch.cuda.empty_cache()
     for r, o in enumerate(outs):
-        if abs(o["loss"] - o["loss_ref"]) > TP_LOSS_ATOL + TP_LOSS_RTOL * abs(o["loss_ref"]):
-            raise AssertionError(f"tensor-parallel: rank {r}'s loss {o['loss']} is not one process's {o['loss_ref']}")
-        if o["worst_excess"] > 0:
-            raise AssertionError(f"tensor-parallel: rank {r}'s gradient of {o['worst_leaf']} is {o['worst_gap']:.3e} "
-                                 f"from one process's (atol = rtol {TP_GRAD_TOL})")
+        for part, res in (("a", o), ("c", o["seq"])):
+            if abs(res["loss"] - res["loss_ref"]) > TP_LOSS_ATOL + TP_LOSS_RTOL * abs(res["loss_ref"]):
+                raise AssertionError(f"tensor-parallel ({part}): rank {r}'s loss {res['loss']} is not one process's "
+                                     f"{res['loss_ref']}")
+            if res["worst_excess"] > 0:
+                raise AssertionError(f"tensor-parallel ({part}): rank {r}'s gradient of {res['worst_leaf']} is "
+                                     f"{res['worst_gap']:.3e} from one process's (atol = rtol {TP_GRAD_TOL})")
+        if set(o["seq"]["collective_bytes_on"]) != {"all-reduce", "all-gather", "reduce-scatter"}:
+            raise AssertionError(f"tensor-parallel (c): rank {r} sent {o['seq']['collective_bytes_on']}: the split "
+                                 "stream all-gathers and reduce-scatters over model")
         if o["launch_losses"] != losses or any(o["launches"].values()):
             raise AssertionError(f"tensor-parallel: rank {r}'s launcher losses or launch counts differ: {o}")
     if len(losses) != TP_STEPS or rel > TP_LAUNCH_RTOL or any(counts.values()):
@@ -3116,6 +3248,10 @@ DRYRUN_DECODE_BYTES = (1.0, 1.25)
 DRYRUN_FLOP_RTOL = 0.01  # the counter's matmul FLOPs against torch.profiler's with_flops total
 DRYRUN_PROFILE_LAYERS = 4  # the eager prefill held against torch.profiler: full width, 4 of 40 layers
 DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("glm4-9b", "decode_32k"))  # on (16, 16), in subprocesses
+# qwen3-14b x train_4k on (16, 16) as the dry run counted it while the
+# residual stream stayed whole on every model rank: per card, temporaries
+# and peak, and the all-reduce bytes over model (counts, not measurements)
+DRYRUN_WHOLE_STREAM = {"temp_gb": 79.45, "peak_gb": 80.03, "model_all_reduce_gb": 325.7}
 
 
 def _terms(lowered, cfg, shape):
@@ -3125,6 +3261,27 @@ def _terms(lowered, cfg, shape):
     rl, _ = extract(lowered, cfg, shape, 1)
     return {"flops": rl.flops, "bytes": rl.hbm_bytes, "compute_ms": rl.compute_s * 1e3,
             "memory_ms": rl.memory_s * 1e3, "collective_ms": rl.collective_s * 1e3, "bottleneck": rl.bottleneck}
+
+
+def _saved_bytes_whole_stream(arch: str, shape: str) -> int:
+    """What remat keeps from the forward of ``arch`` x ``shape``'s train
+    step on the (16, 16) mesh with ``seq_shard`` off (every model rank
+    holding the whole residual stream): the cost counter's saved bytes
+    for the forward and backward, traced on meta as ``lower_cell``
+    traces the step."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import CARDS_PER_HOST, fake_mesh, production_mesh_shape
+    from repro_torch.models import api
+    from repro_torch.training.loop import make_grad_fn
+
+    cfg = dataclasses.replace(get_config(arch), remat=True, seq_shard=False)
+    with fake_mesh(production_mesh_shape()) as dm:
+        with cost.CostCounter(cost.axes_of(dm), CARDS_PER_HOST) as counter:
+            make_grad_fn(cfg, dm)(api.param_specs(cfg), api.input_specs(cfg, SHAPES[shape]))
+    return counter.totals.saved_bytes
 
 
 def _dryrun_line(part, what, terms, measured_ms, measured_from, **kv):
@@ -3254,6 +3411,17 @@ def phase_dryrun(train_step_ms: float, serve_times, cells=()):
             with open(cell_path(arch, shape, 1)) as f:
                 rec = json.load(f)
         line("dryrun", part="c", cell=f"{arch}x{shape}x1pod", record=json.dumps(rec).replace(" ", ""))
+        if rec.get("ok") and shape.startswith("train"):
+            mem = rec["memory_analysis"]
+            model = rec["collectives"]["bytes_by_axis_op"].get("model", {})
+            line("dryrun", part="c", cell=f"{arch}x{shape}x1pod", seq_shard=rec["seq_shard"],
+                 temp_gb=f"{mem['temp_size_in_bytes'] / 1e9:.2f}", peak_gb=f"{mem['peak_bytes_per_device'] / 1e9:.2f}",
+                 peak_at_op=mem["peak_at_op"].replace(" ", "_"),
+                 saved_for_backward_gb=f"{mem['saved_for_backward_bytes'] / 1e9:.3f}",
+                 saved_for_backward_gb_seq_shard_off=f"{_saved_bytes_whole_stream(arch, shape) / 1e9:.3f}",
+                 model_axis_gb=json.dumps({k: round(v / 1e9, 2) for k, v in model.items()}).replace(" ", ""),
+                 whole_stream=json.dumps(DRYRUN_WHOLE_STREAM).replace(" ", ""),
+                 note="dry_run_counts_on_meta_not_chip_measurements")
         cost_ = rec.get("cost_analysis", {})
         if not (rec.get("ok") and cost_.get("flops", 0) > 0 and cost_.get("bytes_accessed", 0) > 0):
             failed.append(f"{arch} x {shape}: rc {out.returncode}, {out.stderr[-1500:]}")

@@ -29,7 +29,8 @@ Conventions, per op:
               once each; views and metadata ops nothing.
   collectives by kind (all-reduce, all-gather, reduce-scatter,
               all-to-all, send/recv, broadcast), their operand bytes and
-              counts, by the mesh axis of their group (``axes``), and the
+              counts, by the mesh axis of their group (``axes``), both
+              (bytes by axis and kind), and the
               share whose group spans more than one host
               (``cards_per_host``).  ``torch.distributed``'s calls reach
               the dispatcher as c10d ops, so every collective of the
@@ -39,7 +40,13 @@ Conventions, per op:
               are not in ``bytes``.
   peak live   the most bytes held at once by storages the step created,
               each tracked from the op that made it until its last
-              tensor is released (the step's arguments not included).
+              tensor is released (the step's arguments not included),
+              and the op whose output set it, with its place among the
+              step's counted ops.
+  saved       the bytes of the step's own storages that autograd saves
+              for the backward (``saved_tensors_hooks``), each storage
+              once: under activation checkpointing a checkpoint's
+              inputs, not the activations it recomputes.
 
 ``CostCounter`` is a ``TorchDispatchMode``: ``with CostCounter() as c:
 step(...)``, then ``c.totals``.
@@ -104,8 +111,12 @@ class CostTotals:
     coll_bytes_by_op: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     coll_count_by_op: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     coll_bytes_by_axis: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    coll_bytes_by_axis_op: Dict[str, Dict[str, int]] = field(default_factory=lambda: defaultdict(lambda: defaultdict(int)))
     coll_cross_host_bytes: int = 0
     peak_live_bytes: int = 0
+    peak_op: str = ""
+    peak_op_index: int = 0  # the peak op's place among ``ops``
+    saved_bytes: int = 0
     ops: int = 0
 
     @property
@@ -126,8 +137,26 @@ class CostCounter(TorchDispatchMode):
         self.totals = CostTotals()
         self.axes = dict(axes or {})
         self.cards_per_host = cards_per_host
-        self._live: Dict[int, list] = {}  # storage key -> [bytes, live tensors]
+        self._live: Dict[int, list] = {}  # storage key -> [bytes, live tensors, saved for the backward]
         self._live_bytes = 0
+
+    def __enter__(self):
+        self._saving = torch.autograd.graph.saved_tensors_hooks(self._pack, lambda t: t)
+        self._saving.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._saving.__exit__(*exc)
+
+    def _pack(self, t):
+        entry = self._live.get(t.untyped_storage()._cdata)
+        if entry is not None and not entry[2]:  # the step's own storage, first saved
+            entry[2] = True
+            self.totals.saved_bytes += entry[0]
+        return t
 
     # ------------------------------------------------------------ memory
     def _release(self, key: int) -> None:
@@ -139,7 +168,7 @@ class CostCounter(TorchDispatchMode):
             self._live_bytes -= entry[0]
             del self._live[key]
 
-    def _track(self, outs, arg_keys) -> None:
+    def _track(self, outs, arg_keys, func) -> None:
         for t in outs:
             st = t.untyped_storage()
             key = st._cdata
@@ -147,9 +176,11 @@ class CostCounter(TorchDispatchMode):
                 continue  # a view of, or a write into, an argument's storage
             entry = self._live.get(key)
             if entry is None:
-                entry = self._live[key] = [st.nbytes(), 0]
+                entry = self._live[key] = [st.nbytes(), 0, False]
                 self._live_bytes += entry[0]
-                self.totals.peak_live_bytes = max(self.totals.peak_live_bytes, self._live_bytes)
+                if self._live_bytes > self.totals.peak_live_bytes:
+                    tot = self.totals
+                    tot.peak_live_bytes, tot.peak_op, tot.peak_op_index = self._live_bytes, str(func), tot.ops
             entry[1] += 1
             weakref.finalize(t, self._release, key)
 
@@ -165,7 +196,9 @@ class CostCounter(TorchDispatchMode):
         tot = self.totals
         tot.coll_bytes_by_op[kind] += size
         tot.coll_count_by_op[kind] += 1
-        tot.coll_bytes_by_axis[axis or f"ranks{ranks[:2]}..{len(ranks)}"] += size
+        axis = axis or f"ranks{ranks[:2]}..{len(ranks)}"
+        tot.coll_bytes_by_axis[axis] += size
+        tot.coll_bytes_by_axis_op[axis][kind] += size
         if len({r // self.cards_per_host for r in ranks}) > 1:
             tot.coll_cross_host_bytes += size
 
@@ -192,7 +225,7 @@ class CostCounter(TorchDispatchMode):
         tot = self.totals
         tot.ops += 1
         if func.is_view or packet in _FREE:
-            self._track(outs, arg_keys)
+            self._track(outs, arg_keys, func)
             return out
         in_b, out_b = sum(nbytes(t) for t in ins), sum(nbytes(t) for t in outs)
         if packet in flop_registry:
@@ -218,7 +251,7 @@ class CostCounter(TorchDispatchMode):
                 tot.flops += ins[0].numel()
             elif torch.Tag.pointwise in func.tags:
                 tot.flops += sum(t.numel() for t in outs)
-        self._track(outs, arg_keys)
+        self._track(outs, arg_keys, func)
         return out
 
 

@@ -61,7 +61,8 @@ def run_cell(arch: str, shape_name: str, pods: int, smoke: bool = False, root: s
     rec["cost_analysis"] = {"flops": rl.flops, "bytes_accessed": rl.hbm_bytes,
                             "matmul_flops": lowered.totals.matmul_flops, "ops": lowered.totals.ops}
     rec["collectives"] = {"bytes_by_op": coll.bytes_by_op, "count_by_op": coll.count_by_op,
-                          "bytes_by_axis": coll.bytes_by_axis}
+                          "bytes_by_axis": coll.bytes_by_axis,
+                          "bytes_by_axis_op": {a: dict(k) for a, k in lowered.totals.coll_bytes_by_axis_op.items()}}
     rec["roofline"] = rl.to_dict()
     rec["ok"] = True
 

@@ -11,7 +11,10 @@ reference's ``global / (chips x peak)``.  A collective whose group lies
 inside one 8-card host crosses NVLink; one whose group spans hosts crosses
 InfiniBand.  On the data-major (16, 16) mesh a ``model`` group is 16
 consecutive ranks, two hosts, so its tensor parallelism runs over
-InfiniBand, as the ``data`` groups do.
+InfiniBand, as the ``data`` groups do.  A collective's bytes are its
+operand's, whatever its kind, the reference's convention: an all-reduce's
+buffer, an all-gather's input (a rank's rows) and a reduce-scatter's
+whole input (every rank's rows), each over the link's bandwidth.
 
 ``python -m repro_torch.launch.roofline [--pods 1] [--smoke]`` prints the
 table over the dry-run records (``launch.dryrun``), as the reference's

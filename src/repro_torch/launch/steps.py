@@ -38,7 +38,7 @@ from ..distributed import sharding as shd
 from ..distributed.sharding import P, NamedSharding
 from ..graphs import CapturedStep, capture  # noqa: F401  (the jit counterpart, with the builders)
 from ..models import api
-from ..models.common import tensor_parallel, tree_leaves
+from ..models.common import splits_sequence, tensor_parallel, tree_leaves
 from ..training import loop, optim
 from . import cost
 from .mesh import CARDS_PER_HOST, fake_mesh
@@ -64,9 +64,10 @@ def opt_config_for(cfg: ModelConfig) -> optim.OptimizerConfig:
 
 
 def _train_cfg(cfg: ModelConfig) -> ModelConfig:
-    """remat on; ``seq_shard`` is set as the reference sets it and is a
-    sharding hint the port's models do not read: the residual stream stays
-    whole on every ``model`` rank."""
+    """remat on, and ``seq_shard`` on, as the reference sets them: under a
+    ``model`` axis over 1 that divides S, the dense and moe forwards hold
+    each rank's ``S / model`` rows of the residual stream between blocks
+    (``models.common.splits_sequence``), and remat saves those rows."""
     return dataclasses.replace(cfg, remat=True, seq_shard=True)
 
 
@@ -172,8 +173,10 @@ class LoweredCell:
     arguments updated in place (parameters and optimizer state in a train
     step, the cache in decode), each in the rules' layout;
     ``temp_bytes`` the most bytes the step's own storages held at once,
-    less the new outputs'.  ``seq_shard`` is False: the residual stream is
-    never split over sequence."""
+    less the new outputs'.  ``seq_shard`` is True where the traced step
+    held the residual stream split over sequence
+    (``models.common.splits_sequence``: a train step of the dense or moe
+    family under a ``model`` axis over 1 that divides S)."""
 
     lower_s: float
     totals: cost.CostTotals
@@ -187,7 +190,10 @@ class LoweredCell:
     def memory_analysis(self) -> Dict[str, int]:
         """The reference's ``memory_analysis`` keys; ``peak_bytes_per_device``
         by its formula (``launch/dryrun.py``), and ``held_peak_bytes`` by
-        the same formula on the held arguments."""
+        the same formula on the held arguments; and the counter's
+        ``saved_for_backward_bytes`` (what remat keeps from the forward)
+        and ``peak_at_op`` (the op whose output set the peak, and its
+        place among the step's ops)."""
         out = {"argument_size_in_bytes": self.argument_bytes, "output_size_in_bytes": self.output_bytes,
                "temp_size_in_bytes": self.temp_bytes, "alias_size_in_bytes": self.alias_bytes,
                "generated_code_size_in_bytes": 0}
@@ -195,6 +201,8 @@ class LoweredCell:
         out["peak_bytes_per_device"] = self.argument_bytes + extra
         out["held_argument_size_in_bytes"] = self.held_argument_bytes
         out["held_peak_bytes"] = self.held_argument_bytes + extra
+        out["saved_for_backward_bytes"] = self.totals.saved_bytes
+        out["peak_at_op"] = f"{self.totals.peak_op}, op {self.totals.peak_op_index} of {self.totals.ops}"
         return out
 
 
@@ -273,7 +281,9 @@ def lower_cell(mesh, cfg: ModelConfig, shape: ShapeConfig) -> LoweredCell:
                 logits, _ = step(p, tokens, cache, pos)
             new = [logits]
         new_bytes = _held(new)
+        model = shd.axis_sizes(mesh).get("model", 1) if dm.size() > 1 else 1
         return LoweredCell(
             lower_s=time.perf_counter() - t0, totals=counter.totals,
             argument_bytes=argument, held_argument_bytes=held, output_bytes=alias + new_bytes,
-            alias_bytes=alias, temp_bytes=max(0, counter.totals.peak_live_bytes - new_bytes))
+            alias_bytes=alias, temp_bytes=max(0, counter.totals.peak_live_bytes - new_bytes),
+            seq_shard=kind == "train" and splits_sequence(_train_cfg(cfg), shape.seq_len, model, cached=False))

@@ -16,12 +16,21 @@ parameters, and of caches, every rank holds whole, and join the parts with
 the two conjugate collectives below, so the loss and gradients, or the
 logits and caches, are one device's.  Without the context, or at a
 ``model`` size of 1, every layer runs its one-device code unchanged.
+
+The reference's sequence sharding (``cfg.seq_shard``) has its
+counterpart in ``sequence_split``: where ``splits_sequence`` holds, the
+dense and moe forwards hold only the rank's ``S / model`` rows of the
+residual stream between blocks, and the splits' entries and exits become
+an all-gather and a reduce-scatter over the sequence (``enter_split``,
+``leave_split``).  The function is the same; what a rank keeps, and the
+kinds of collective, change.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -154,6 +163,7 @@ class MeshAxes:
     model_size: int
     batch_groups: Tuple[Any, ...]
     batch_size: int
+    seq_split: bool = False  # the residual stream holds this rank's S / model rows (``sequence_split``)
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
@@ -287,3 +297,167 @@ def mean_over_batch(t):
     if axes is None or not axes.batch_groups:
         return t
     return _Collective.apply(t, axes.batch_groups, True, True) / axes.batch_size
+
+
+# ------------------------------------------------------ sequence sharding
+SEQ_SPLIT_FAMILIES = ("dense", "moe")  # the reference constrains the stream in their blocks only
+
+
+def splits_sequence(cfg, S: int, model_size: int, cached: bool) -> bool:
+    """Whether a forward of ``S`` tokens holds the residual stream split
+    over ``model`` on the sequence: the reference's rule
+    (``models/transformer.py:171``: ``seq_shard`` on, ``model`` over 1
+    and dividing S) in the families whose blocks it constrains, and, in
+    the port, no cache (the reference sets the flag only in its train
+    steps, so its cached steps never see it)."""
+    return (cfg.seq_shard and cfg.family in SEQ_SPLIT_FAMILIES and model_size > 1 and S % model_size == 0
+            and not cached)
+
+
+@contextlib.contextmanager
+def sequence_split(on: bool):
+    """``with sequence_split(True):`` marks the active context's residual
+    stream as split over sequence, so the layers enter and leave their
+    splits through ``enter_split`` and ``leave_split``, and parameters
+    applied to the rank's rows through ``on_rows``; ``False`` enters
+    nothing.  Activation checkpointing's recompute sees the mark too
+    (``under_current_mesh``)."""
+    axes = current_tp()
+    if not on or axes is None:
+        yield
+        return
+    token = _MESH.set(dataclasses.replace(axes, seq_split=True))
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def seq_rows(t, tp: MeshAxes):
+    """This model rank's rows of ``t``'s dim 1 (the sequence), as a view:
+    the ``model_rank``-th of ``model_size`` equal runs."""
+    n = t.shape[1] // tp.model_size
+    return t.narrow(1, tp.model_rank * n, n)
+
+
+def _gather_seq(t, tp: MeshAxes):
+    """(B, n, ...) on each model rank -> (B, model·n, ...), the ranks' rows
+    in rank order, exact in ``t``'s dtype."""
+    out = t.new_empty((tp.model_size * t.shape[0],) + tuple(t.shape[1:]))  # the ranks' tensors end to end
+    dist.all_gather_into_tensor(out, t.contiguous(), group=tp.model_group)
+    return out.unflatten(0, (tp.model_size, -1)).movedim(0, 1).flatten(1, 2)
+
+
+def _reduce_scatter_seq(t, tp: MeshAxes):
+    """(B, S, ...) partial sums on each model rank -> this rank's rows
+    (``seq_rows``) of their sum over ``model``, taken in f32 and rounded
+    once to ``t``'s dtype."""
+    parts = t.unflatten(1, (tp.model_size, -1)).movedim(1, 0)  # rank r's rows r-th
+    parts = parts.to(torch.float32, memory_format=torch.contiguous_format)  # one copy
+    out = parts.new_empty(parts.shape[1:])
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1), op=dist.ReduceOp.SUM, group=tp.model_group)
+    return out.to(t.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Where the split stream enters a split over ``model``: all-gathered
+    forward, exact in the activation's dtype (a gather moves values, it
+    rounds nothing).  Backward, each rank holds the gradient only for its
+    part of the split, over every row: the parts are summed and scattered
+    back to their rows (``_reduce_scatter_seq``), in f32 and rounded once,
+    as ``reduce_from_model`` rounds its sum."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _gather_seq(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.tp), None
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    """Where a split's partial sums leave it into the split stream: summed
+    over ``model`` and scattered to the ranks' rows forward, in f32 and
+    rounded once to the activation's dtype (each rank's partial is a
+    product in that dtype; one device rounds the whole product once).
+    Backward, each rank's rows of the gradient are the whole gradient of
+    its output rows: all-gathered, exact."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _reduce_scatter_seq(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.tp), None
+
+
+class _SeqSlice(torch.autograd.Function):
+    """Where a tensor every model rank holds whole becomes the split stream
+    (after the embedding): this rank's rows forward, in a storage of their
+    own, so nothing keeps the whole tensor alive.  Backward, the rows'
+    gradients are all-gathered, exact, so the whole tensor's gradient
+    (and the embedding table's, behind it) is whole on every rank: the
+    table needs no sum over ``model``, which would move far more than a
+    (B, S, D) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return seq_rows(x, tp).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.tp), None
+
+
+def split_rows(x, tp: MeshAxes):
+    """A whole tensor -> this rank's rows of the split stream (``_SeqSlice``)."""
+    return _SeqSlice.apply(x, tp)
+
+
+def gather_rows(x, tp: MeshAxes):
+    """The split stream's rows -> every row (``_SeqGather``; an integer
+    tensor is gathered without autograd)."""
+    return _SeqGather.apply(x, tp) if x.is_floating_point() else _gather_seq(x, tp)
+
+
+def enter_split(x, tp: MeshAxes):
+    """Where an activation enters a split over ``model``: ``gather_rows``
+    while the stream is split over sequence, else ``copy_to_model``."""
+    return gather_rows(x, tp) if tp.seq_split else copy_to_model(x, tp)
+
+
+def leave_split(x, tp: MeshAxes):
+    """Where a split's partial sums leave it: reduce-scattered to the
+    rank's rows (``_SeqReduceScatter``) while the stream is split over
+    sequence, else ``reduce_from_model``."""
+    return _SeqReduceScatter.apply(x, tp) if tp.seq_split else reduce_from_model(x, tp)
+
+
+def on_rows(w):
+    """A parameter the rules keep whole that acts on the split stream's
+    rows (a norm scale, a down-projection, the router): through
+    ``copy_to_model`` while the stream is split over sequence, so its
+    gradient, each rank's sum over its rows, is summed over ``model``
+    inside the graph and comes out whole on every rank, as for any
+    parameter ``sharding.model_partial`` leaves out; ``w`` itself
+    otherwise."""
+    tp = current_tp()
+    return copy_to_model(w, tp) if tp is not None and tp.seq_split else w
+
+
+def mean_over_seq(t):
+    """The mean over the model ranks of ``t``, a mean over this rank's
+    rows of the split stream, while it is split (each rank holds as many
+    rows): the mean over every row; ``t`` itself otherwise.  Summed over
+    ``model`` forward, the identity backward (``reduce_from_model``): the
+    term built on it is the same on every model rank, so its gradient
+    already is."""
+    tp = current_tp()
+    if tp is None or not tp.seq_split:
+        return t
+    return reduce_from_model(t, tp) / tp.model_size

@@ -29,6 +29,19 @@ on every rank, is read and written through a view of the rank's KV heads
 (every KV head where the split is over query groups); MLA's latent cache
 is whole on every rank.  A split wider than its dim leaves some ranks an
 empty part (``common.split_range``), which every layer runs through.
+
+While the residual stream is split over sequence (``common.sequence_split``:
+the training forward of the dense and moe families under ``cfg.seq_shard``)
+a layer's input holds the rank's ``S / model`` rows: the input enters the
+split through an all-gather of the rows (``common.enter_split``) and the
+partial output leaves it through a reduce-scatter back to them
+(``common.leave_split``).  What acts row by row runs on the rank's rows:
+MLA's down-projections and their norms, whose narrower outputs (the
+latent query, ``c`` and ``k_rope``: 1056 wide at minicpm3-4b's D 2560)
+are gathered in place of the D-wide input, so no rank repeats their
+products; and the MoE's router, whose gate weights and expert ids are
+gathered for the dispatch and whose probabilities stay on the rows.
+Those parameters enter through ``common.on_rows``.
 """
 
 from __future__ import annotations
@@ -40,8 +53,8 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention import paged_decode, paged_decode_ref
 from ..kernels.flash_attention import flash_attention, flash_attention_full, flash_attention_plain
-from .common import (Spec, copy_to_model, current_tp, grouped_head_split, reduce_from_model,
-                     split_range)
+from .common import (Spec, copy_to_model, current_tp, enter_split, gather_rows, grouped_head_split, leave_split,
+                     on_rows, seq_rows, split_range)
 
 F32 = torch.float32
 PAGE = 16  # tokens per page when the dense cache is viewed as KV pages
@@ -213,15 +226,17 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     ``decode_index(B, S_max, pos + 1)`` (built here when the caller passes
     none).  Under a tensor-parallel context: this rank's heads
     (``gqa_shard``), summed over ``model`` after ``wo``, and of the cache
-    (held whole) the view of its KV heads (``gqa_heads``)."""
-    B, S, D = x.shape
+    (held whole) the view of its KV heads (``gqa_heads``); x is the rank's
+    rows of the sequence, and so is the output, while the stream is split
+    over it."""
     Dh = cfg.d_head
     tp = current_tp()
     if tp is not None:
-        p, x = gqa_shard(p, cfg, tp), copy_to_model(x, tp)
+        p, x = gqa_shard(p, cfg, tp), enter_split(x, tp)
         if cache is not None:
             kv = gqa_heads(cfg, tp)[0]
             cache = (kv_head_view(cache[0], kv), kv_head_view(cache[1], kv), cache[2])
+    B, S, _ = x.shape
     H, KVH = p["wo"].shape[0] // Dh, p["wk"].shape[-1] // Dh
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
@@ -258,7 +273,7 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         new_cache = (ck, cv)
     out = torch.matmul(out.reshape(B, S, H * Dh), p["wo"])
     if tp is not None:
-        out = reduce_from_model(out, tp)
+        out = leave_split(out, tp)
     return out, new_cache
 
 
@@ -293,13 +308,15 @@ def mla_project_latent(p, cfg, x, positions):
 def mla_queries(p, cfg, x, positions):
     """x -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr)); H is the heads ``wq_b``
     holds (this rank's under a tensor-parallel context, where the latent
-    query enters the split through ``copy_to_model``)."""
-    B, S, _ = x.shape
+    query enters the split through ``common.enter_split``: gathered from
+    x's rows while the stream is split over sequence, and S, with
+    ``positions``, then every row's)."""
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q_a = rms_norm(torch.matmul(x, p["wq_a"]), p["q_a_norm"])
     tp = current_tp()
     if tp is not None:
-        q_a = copy_to_model(q_a, tp)
+        q_a = enter_split(q_a, tp)
+    B, S, _ = q_a.shape
     H = p["wq_b"].shape[-1] // (dn + dr)
     q = torch.matmul(q_a, p["wq_b"]).reshape(B, S, H, dn + dr)
     cos, sin = rope_tables(positions, dr, cfg.rope_theta)
@@ -329,12 +346,13 @@ def _mla_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, kv_len):
 def mla_shard(p, cfg, tp):
     """This model rank's heads of an MLA layer: ``wq_b``, ``wk_b`` and
     ``wv_b`` columns and ``wo`` rows; the latent projections and their
-    norms stay whole (they run before the split)."""
+    norms stay whole (they run before the split, on the rank's rows
+    while the stream is split over sequence: ``common.on_rows``)."""
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     hs = split_range(H, tp.model_size, tp.model_rank)
     per = {"wq_b": dn + dr, "wk_b": dn, "wv_b": dv, "wo": dv}
-    return {name: take_heads(w, 0 if name == "wo" else -1, H, 1, per[name], hs, (0, 1)) if name in per else w
-            for name, w in p.items()}
+    return {name: take_heads(w, 0 if name == "wo" else -1, H, 1, per[name], hs, (0, 1)) if name in per
+            else on_rows(w) for name, w in p.items()}
 
 
 def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
@@ -350,18 +368,22 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     every S_max slot with kv_len = pos + 1 masking the rest, as the
     reference does, so ``pos`` may there be a 0-d tensor.  Under a
     tensor-parallel context: this rank's heads (``mla_shard``), the latent
-    entering the split through ``copy_to_model``, summed over ``model``
-    after ``wo``; every rank writes the whole latent into its whole cache."""
-    B, S, _ = x.shape
+    entering the split through ``common.enter_split``, summed over
+    ``model`` after ``wo``; every rank writes the whole latent into its
+    whole cache.  While the stream is split over sequence, x and the
+    output are the rank's rows, and the latent is projected from x's rows
+    (at their positions) and gathered."""
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     tp = current_tp()
     if tp is not None:
         p = mla_shard(p, cfg, tp)
     H = p["wo"].shape[0] // dv
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
-    c_new, kr_new = mla_project_latent(p, cfg, x, positions)
+    B, S = q_nope.shape[:2]
+    rows = seq_rows(positions, tp) if tp is not None and tp.seq_split else positions  # x's positions
+    c_new, kr_new = mla_project_latent(p, cfg, x, rows)
     if tp is not None:
-        c_new, kr_new = copy_to_model(c_new, tp), copy_to_model(kr_new, tp)
+        c_new, kr_new = enter_split(c_new, tp), enter_split(kr_new, tp)
 
     if cache is None:
         c_kv, k_rope, new_cache, pos = c_new, kr_new, None, q_offset
@@ -384,7 +406,7 @@ def mla_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
         out = attend(q, k, v, cfg.causal, pos, plain_kernels)
     out = torch.matmul(out.reshape(B, S, H * dv), p["wo"])
     if tp is not None:
-        out = reduce_from_model(out, tp)
+        out = leave_split(out, tp)
     return out, new_cache
 
 
@@ -398,15 +420,16 @@ def build_mlp_template(cfg, d_ff: Optional[int] = None) -> Dict:
 def swiglu_mlp(p, x):
     """SwiGLU; under a tensor-parallel context this rank's slice of the
     hidden dim (``w_gate``/``w_up`` columns, ``w_down`` rows), summed over
-    ``model``."""
+    ``model`` (x and the output the rank's rows of the sequence while the
+    stream is split over it)."""
     tp = current_tp()
     if tp is not None:
         lo, hi = split_range(p["w_down"].shape[0], tp.model_size, tp.model_rank)
         p = {"w_gate": p["w_gate"][:, lo:hi], "w_up": p["w_up"][:, lo:hi], "w_down": p["w_down"][lo:hi]}
-        x = copy_to_model(x, tp)
+        x = enter_split(x, tp)
     h = F.silu(torch.matmul(x, p["w_gate"])) * torch.matmul(x, p["w_up"])
     out = torch.matmul(h, p["w_down"])
-    return out if tp is None else reduce_from_model(out, tp)
+    return out if tp is None else leave_split(out, tp)
 
 
 # --------------------------------------------------------------------- MoE
@@ -467,19 +490,24 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     (so ``probs``, and the balance term built on it, are the same on
     each), each rank fills and runs the (B, E/model, C, D) buffer of its
     experts, combines only the slots its experts own, and the partial
-    outputs are summed over ``model``."""
-    B, S, D = x.shape
+    outputs are summed over ``model``.  While the stream is split over
+    sequence, x and the output are the rank's rows: the route runs on
+    them (``probs`` are theirs), and x, the gate weights and the expert
+    ids are gathered, so the dispatch, and its capacity, see every row."""
     E, k = cfg.n_experts, cfg.experts_per_token
-    C = moe_capacity(cfg, S, dropless)
     dev = x.device
-    probs, gate_w, gate_e = moe_route(p, cfg, x)
     tp = current_tp()
+    probs, gate_w, gate_e = moe_route({"router": on_rows(p["router"])}, cfg, x)
     e0, El = 0, E  # this rank's experts [e0, e0 + El)
     if tp is not None:
         e0, e1 = split_range(E, tp.model_size, tp.model_rank)
         El = e1 - e0
         p = {n: p[n][e0:e1] for n in ("w_gate", "w_up", "w_down")}
-        x, gate_w = copy_to_model(x, tp), copy_to_model(gate_w, tp)
+        x, gate_w = enter_split(x, tp), enter_split(gate_w, tp)
+        if tp.seq_split:
+            gate_e = gather_rows(gate_e, tp)
+    B, S, D = x.shape
+    C = moe_capacity(cfg, S, dropless)
 
     flat_e = gate_e.reshape(B, S * k)
     sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
@@ -523,8 +551,8 @@ def moe_layer(p, cfg, x, dropless: bool = False):
     picked = _take_rows(picked_sorted, inv_order)
     out = picked.reshape(B, S, k, D).sum(dim=2)
     if tp is not None:
-        out = reduce_from_model(out, tp)
-    return out, probs.reshape(B * S, E)
+        out = leave_split(out, tp)
+    return out, probs.reshape(-1, E)
 
 
 def moe_aux_loss(probs, gate_e, n_experts: int):

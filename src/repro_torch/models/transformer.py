@@ -11,10 +11,19 @@ layers' sites (``layers.py``), and the logits over the vocabulary
 (``lm_head`` columns, uneven where ``model`` does not divide V), with the
 cross-entropy taken over the split vocabulary.  The embedding's gather, rwkv6's
 blocks and the hybrid's Mamba-2 blocks have no site and run whole on every
-rank, their recurrent states whole in every rank's cache.  The
-reference's ``cfg.seq_shard`` (the residual stream split over sequence
-between blocks) is a layout only: here the residual stream stays whole on
-every model rank.
+rank, their recurrent states whole in every rank's cache.
+
+The reference's ``cfg.seq_shard`` splits the residual stream over
+sequence between blocks.  Here, where ``common.splits_sequence`` holds
+(the training forward of the dense and moe families, ``model`` over 1
+and dividing S), each model rank takes its ``S / model`` rows after the
+embedding (``common.split_rows``: the embedding table's gradient stays
+whole on every rank), the blocks run on those rows, gathering the
+sequence where each split begins and reduce-scattering it where the
+split's partial sums leave (``layers.py``), so activation checkpointing
+saves the rows, and the final norm's output is gathered for the logits.
+rwkv6 and the hybrid keep the stream whole, as the reference, which
+constrains it in neither family's blocks, does.
 """
 
 from __future__ import annotations
@@ -26,8 +35,8 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
-from .common import (Spec, copy_to_model, current_tp, mean_over_batch, reduce_from_model, split_range, tree_init,
-                     under_current_mesh)
+from .common import (Spec, current_tp, enter_split, mean_over_batch, mean_over_seq, on_rows, reduce_from_model,
+                     sequence_split, split_range, split_rows, splits_sequence, tree_init, under_current_mesh)
 from .layers import (F32, PAGE, build_gqa_template, build_mla_template, build_mlp_template,
                      build_moe_template, decode_index, gqa_attention, mla_attention, moe_layer,
                      rms_norm, swiglu_mlp)
@@ -207,11 +216,24 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
     and written through views of this rank's heads (``layers.py``), and
     each moe layer's ``me`` is the mean over the batch axes' ranks
     (``common.mean_over_batch``): the reference's term over the global
-    batch."""
+    batch.  Where ``common.splits_sequence`` holds, the residual stream
+    between blocks is the rank's rows of the sequence (the module's
+    docstring), and ``me`` the mean over every row
+    (``common.mean_over_seq``)."""
     require_ported(cfg)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     check_pos(pos, S, cache)
+    tp = current_tp()
+    with sequence_split(tp is not None and splits_sequence(cfg, S, tp.model_size, cache is not None)):
+        return _lm_forward(params, cfg, tokens, pos, cache, plain_kernels)
+
+
+def _lm_forward(params, cfg, tokens, pos, cache, plain_kernels):
+    B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
+    tp = current_tp()
+    if tp is not None and tp.seq_split:
+        x = split_rows(x, tp)
     dev = x.device
     positions = (pos + torch.arange(S, dtype=torch.int32, device=dev))[None, :].expand(B, S)
     layers = unstack(params["blocks"], cfg.n_layers)
@@ -268,7 +290,7 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
             index = decode_index(B, cache["k"].shape[2], pos + 1, dev)
 
         def attn_block(x, aux, bp, i):
-            h = rms_norm(x, bp["attn_norm"])
+            h = rms_norm(x, on_rows(bp["attn_norm"]))
             if mla:
                 layer_cache = None if cache is None else (cache["c"][i], cache["kr"][i], pos)
                 h, _ = mla_attention(bp["attn"], cfg, h, positions, layer_cache,
@@ -279,31 +301,33 @@ def lm_forward(params, cfg, tokens, pos: int = 0, cache: Optional[Dict] = None,
                                      q_offset=pos, plain_kernels=plain_kernels, index=index)
             x = x + h
             if cfg.family == "moe":
-                h, probs = moe_layer(bp["moe"], cfg, rms_norm(x, bp["moe_norm"]), dropless=cache is not None)
+                h, probs = moe_layer(bp["moe"], cfg, rms_norm(x, on_rows(bp["moe_norm"])), dropless=cache is not None)
                 x = x + h
-                me = mean_over_batch(probs.mean(dim=0))
+                me = mean_over_batch(mean_over_seq(probs.mean(dim=0)))
                 aux = aux + cfg.n_experts * torch.sum(me * me)  # the reference's mean-prob balance proxy
             else:
-                x = x + swiglu_mlp(bp["mlp"], rms_norm(x, bp["mlp_norm"]))
+                x = x + swiglu_mlp(bp["mlp"], rms_norm(x, on_rows(bp["mlp_norm"])))
             return x, aux
 
         block = checkpointed(attn_block, remat)
         for i in range(cfg.n_layers):
             x, aux = block(x, aux, layers[i], i)
 
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, on_rows(params["final_norm"]))
     logits = vocab_logits(x, params["lm_head"])
     return logits, cache, {"aux_loss": aux}
 
 
 def vocab_logits(x, w):
     """x @ w: the logits; under a tensor-parallel context this rank's
-    columns of the vocabulary (``split_range`` of w's V)."""
+    columns of the vocabulary (``split_range`` of w's V), x entering the
+    split through ``common.enter_split`` (gathered from the rank's rows
+    while the stream is split over sequence)."""
     tp = current_tp()
     if tp is None:
         return torch.matmul(x, w)
     lo, hi = split_range(w.shape[1], tp.model_size, tp.model_rank)
-    return torch.matmul(copy_to_model(x, tp), w[:, lo:hi])
+    return torch.matmul(enter_split(x, tp), w[:, lo:hi])
 
 
 # ------------------------------------------------------------------- loss

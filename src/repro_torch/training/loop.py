@@ -87,9 +87,11 @@ def _batch_rows(mesh, batch):
 
 
 def _batch_groups(mesh):
-    """The batch axes' groups and the product of their sizes."""
+    """The groups of the batch axes over 1 and the product of their sizes
+    (an axis of size 1 has nothing to reduce: on CUDA tensors gloo would
+    still stage each leaf through host memory and back)."""
     sizes = shd.axis_sizes(mesh)
-    live = [a for a in shd.BATCH if a in sizes]
+    live = [a for a in shd.BATCH if sizes.get(a, 1) > 1]
     return [mesh.get_group(a) for a in live], math.prod(sizes[a] for a in live)
 
 

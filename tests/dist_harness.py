@@ -380,12 +380,16 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def allreduce_ranks(rank, world, workdir, arch: str, B: int, S: int):
+def collective_ranks(rank, world, workdir, arch: str, B: int, S: int):
     """The train, prefill and decode steps of ``launch.steps`` (as
     ``lower_cell`` builds them: remat and AdamW, the plain versions) of
     ``arch``'s smoke config at (B, S) on the (2, 2) mesh, on real tensors:
-    the bytes each step hands ``dist.all_reduce`` on this rank, counted
-    around the call.  The batch comes from numpy with seed 5."""
+    the bytes each step hands ``dist.all_reduce``,
+    ``dist.all_gather_into_tensor`` and ``dist.reduce_scatter_tensor`` on
+    this rank, counted around each call by kind, in the cost counter's
+    convention (``launch/cost.py``): the operand, which is an all-reduce's
+    buffer and the input of the other two.  The batch comes from numpy
+    with seed 5."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as shd
@@ -401,29 +405,117 @@ def allreduce_ranks(rank, world, workdir, arch: str, B: int, S: int):
     rng = np.random.default_rng(5)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)) for k in ("tokens", "labels")}
     rows = shd.batch_shardings(mesh, batch["tokens"]).shard_slices((B, S))[tuple(mesh.get_coordinate())][0]
-    sent = {"n": 0}
-    all_reduce = dist.all_reduce
+    sent = {}
+    wrapped = {"all_reduce": ("all-reduce", 0), "all_gather_into_tensor": ("all-gather", 1),
+               "reduce_scatter_tensor": ("reduce-scatter", 1)}
+    originals = {name: getattr(dist, name) for name in wrapped}
 
-    def counted(t, *args, **kwargs):
-        sent["n"] += t.numel() * t.element_size()
-        return all_reduce(t, *args, **kwargs)
+    def counted(name):
+        kind, at = wrapped[name]
+
+        def call(*args, **kwargs):
+            t = args[at]
+            if dist.get_world_size(kwargs.get("group")) > 1:  # a group of one rank moves nothing
+                sent[kind] = sent.get(kind, 0) + t.numel() * t.element_size()
+            return originals[name](*args, **kwargs)
+
+        return call
+
+    def take():
+        got = dict(sent)
+        sent.clear()
+        return got
 
     out = {}
-    dist.all_reduce = counted
+    for name in wrapped:
+        setattr(dist, name, counted(name))
     try:
         step, ocfg = steps.build_train_step(cfg, mesh=mesh)
         params = api.init_params(cfg, 0, "cpu")
         step(params, optim.init_state(ocfg, params), batch)
-        out["train"], sent["n"] = sent["n"], 0
+        out["train"] = take()
         params = api.init_params(cfg, 0, "cpu")
         with torch.no_grad(), tensor_parallel(mesh):
             steps.build_prefill_step(cfg, ShapeConfig("p", S, B, "prefill"), plain_kernels=True)(
                 params, {"tokens": batch["tokens"][rows]})
-            out["prefill"], sent["n"] = sent["n"], 0
+            out["prefill"] = take()
             cache = api.init_cache(cfg, rows.stop - rows.start, S, "cpu")
             steps.build_decode_step(cfg, ShapeConfig("d", S, B, "decode"), plain_kernels=True)(
                 params, batch["tokens"][rows, :1], cache, torch.tensor(S - 1, dtype=torch.int32))
-            out["decode"] = sent["n"]
+            out["decode"] = take()
     finally:
-        dist.all_reduce = all_reduce
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    return out
+
+
+# the sequence-sharding cases (tests/test_torch_seq_shard.py): the families
+# whose residual stream splits over sequence, and those that keep it whole
+SEQ_CASES = ("dense", "moe", "mla")
+SEQ_WHOLE = ("rwkv6", "hybrid", "whisper")
+SEQ_UNEVEN_S = 31  # a sequence model 2 does not divide: the stream stays whole
+
+
+def seq_config(case: str, seq_shard: bool = True):
+    """``tp_config(case)`` with remat on and ``seq_shard`` as given, as the
+    train steps set them (``launch/steps.py::_train_cfg``)."""
+    import dataclasses
+
+    return dataclasses.replace(tp_config(case), remat=True, seq_shard=seq_shard)
+
+
+def checkpointed_inputs(cfg, mesh, batch):
+    """The loss terms and gradients of ``batch`` under ``mesh``
+    (``make_grad_fn``), and the shape of the residual stream each
+    activation checkpoint saved: the tensors saved, seen through
+    ``torch.autograd.graph.saved_tensors_hooks``, while a checkpoint takes
+    its inputs, that are the block's first input."""
+    import torch.utils.checkpoint as ckpt
+
+    from repro_torch.training.loop import make_grad_fn
+
+    inputs, saved = [], []
+    checkpoint = ckpt.checkpoint
+
+    def recording(fn, x, *args, **kwargs):
+        inputs.append(x)
+        try:
+            return checkpoint(fn, x, *args, **kwargs)
+        finally:
+            inputs.pop()
+
+    def pack(t):
+        if inputs and t.data_ptr() == inputs[-1].data_ptr() and t.shape == inputs[-1].shape:
+            saved.append(tuple(t.shape))
+        return t
+
+    ckpt.checkpoint = recording
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, parts, grads = make_grad_fn(cfg, mesh)(f32_params(cfg), batch)
+    finally:
+        ckpt.checkpoint = checkpoint
+    return {"loss": float(loss), "aux": float(parts["aux"]), "grads": grads, "saved": saved}
+
+
+def seq_shard_ranks(rank, world, workdir, meshes):
+    """On each (data, model) mesh of ``meshes`` ({(data, model): (cases,
+    whole_cases)}): each of ``cases`` with ``seq_shard`` on and off
+    (``checkpointed_inputs``), and on at ``SEQ_UNEVEN_S`` tokens; each of
+    ``whole_cases`` with ``seq_shard`` on and off; on ``world`` gloo ranks.
+    -> {(data, model, case, "on" | "off" | "uneven"): result}."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.set_num_threads(1)
+    out = {}
+    for (data, model), (cases, whole) in meshes.items():
+        mesh = make_smoke_mesh(data, model, device="cpu")
+        for case in cases + whole:
+            for on in (True, False):
+                cfg = seq_config(case, on)
+                out[(data, model, case, "on" if on else "off")] = checkpointed_inputs(cfg, mesh, train_batch(cfg, 0))
+        for case in cases:
+            cfg = seq_config(case)
+            batch = {k: v[:, :SEQ_UNEVEN_S] for k, v in train_batch(cfg, 0).items()}
+            out[(data, model, case, "uneven")] = checkpointed_inputs(cfg, mesh, batch)
     return out

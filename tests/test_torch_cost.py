@@ -179,3 +179,29 @@ def test_inference_mode_counts_what_no_grad_counts():
         _, got = count(fwd)
     assert got.matmul_flops == want.matmul_flops == 2 * 4 * 8 * 32 * 16 + 2 * 4 * 8 * 8 * 32
     assert (got.flops, got.bytes) == (want.flops, want.bytes)
+
+
+def test_saved_bytes_are_what_the_backward_keeps():
+    """A tanh's output is saved for its backward; under activation
+    checkpointing only the checkpoint's input is, and a parameter (an
+    argument of the step) never counts.  The peak names the op that set
+    it."""
+    import torch.utils.checkpoint
+
+    w = _t(256, 256).requires_grad_(True)
+    x = _t(64, 256).requires_grad_(True)
+
+    def block(h):
+        return torch.tanh(torch.tanh(h @ w))
+
+    def step(remat):
+        h = x * 2  # the block's input, made by the step
+        y = torch.utils.checkpoint.checkpoint(block, h, use_reentrant=False) if remat else block(h)
+        return torch.autograd.grad(y.sum(), (x, w))
+
+    _, plain = count(step, False)
+    _, remat = count(step, True)
+    act = 4 * 64 * 256
+    assert plain.saved_bytes == 3 * act  # h for the matmul, both tanh outputs
+    assert remat.saved_bytes == act  # the checkpoint's input
+    assert plain.peak_op and plain.peak_op.startswith("aten.")

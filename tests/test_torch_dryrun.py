@@ -15,9 +15,15 @@ What must agree, and how closely:
   * decode's matmul FLOPs equal the analytic count: 2 x B x the matmul
     parameters, and 4 x B x H x Dh x slots for the attention over the
     whole cache;
-  * collectives: none at (1, 1); at (2, 2) the fake group's all-reduce
-    bytes equal what the same steps hand ``dist.all_reduce`` on 2 x 2 gloo
-    ranks (``dist_harness.allreduce_ranks``).
+  * collectives: none at (1, 1); at (2, 2) the fake group's bytes of
+    each kind (all-reduce; and in the train step, which splits the
+    residual stream over sequence, all-gather and reduce-scatter) equal
+    what the same steps hand ``dist.all_reduce``,
+    ``dist.all_gather_into_tensor`` and ``dist.reduce_scatter_tensor`` on
+    2 x 2 gloo ranks (``dist_harness.collective_ranks``);
+  * the train step's FLOPs at (2, 2) under the 116,124,579 the port
+    counted before it split the residual stream over sequence, whose
+    elementwise work every model rank repeated.
 Then ``model_flops_for`` in both packages for every cell, the CLI's
 record and the roofline table, and one cell a family at (16, 16).
 """
@@ -90,8 +96,8 @@ def port():
 
 @pytest.fixture(scope="module")
 def gloo(tmp_path_factory):
-    """Rank 0's all-reduce bytes of each step on 4 gloo ranks at (2, 2)."""
-    return dh.run_ranks(dh.allreduce_ranks, 4, str(tmp_path_factory.mktemp("ar")), ARCH, B, S)[0]
+    """Rank 0's collective bytes by kind of each step on 4 gloo ranks at (2, 2)."""
+    return dh.run_ranks(dh.collective_ranks, 4, str(tmp_path_factory.mktemp("ar")), ARCH, B, S)[0]
 
 
 def _ids(m, k):
@@ -126,12 +132,29 @@ def test_decode_matmul_flops_equal_the_analytic_count(mesh, port):
 @pytest.mark.parametrize("kind", KINDS)
 def test_collective_bytes_are_the_gloo_ranks(kind, port, gloo, reference):
     """None at (1, 1), as in the reference; at (2, 2) the fake trace's
-    all-reduce bytes are what the step sends on real ranks."""
+    bytes of each kind are what the step sends on real ranks: the train
+    step, whose residual stream is split over sequence, all-gathers and
+    reduce-scatters over ``model`` besides its all-reduces; prefill and
+    decode, with a cache, all-reduce only."""
     assert port[((1, 1), kind)].totals.collective_bytes == 0
     assert not reference[f"1x1|{kind}"]["coll"]
     got = port[((2, 2), kind)].totals
-    assert dict(got.coll_bytes_by_op) == {"all-reduce": gloo[kind]} and gloo[kind] > 0
+    assert dict(got.coll_bytes_by_op) == gloo[kind] and gloo[kind]["all-reduce"] > 0
+    want = {"all-reduce", "all-gather", "reduce-scatter"} if kind == "train" else {"all-reduce"}
+    assert set(gloo[kind]) == want
+    assert port[((2, 2), kind)].seq_shard is (kind == "train")
     assert got.coll_cross_host_bytes == 0  # 4 ranks: one host
+
+
+# the train step's FLOPs at (2, 2) before the residual stream was split over
+# sequence (every model rank then repeated its elementwise work)
+WHOLE_STREAM_TRAIN_FLOPS = 116_124_579
+
+
+def test_the_split_stream_counts_fewer_train_flops(port, reference):
+    got = port[((2, 2), "train")].totals.flops
+    assert got < WHOLE_STREAM_TRAIN_FLOPS, got
+    assert abs(got - reference["2x2|train"]["flops"]) <= FLOP_RTOL * reference["2x2|train"]["flops"]
 
 
 # ------------------------------------------------------- model_flops_for
@@ -159,6 +182,14 @@ def test_cli_writes_the_references_keys_and_the_table_reads_them(tmp_path):
     assert {"arch", "shape", "pods", "chips", "ok", "lower_s", "compile_s", "memory_analysis", "cost_analysis",
             "collectives", "roofline"} <= set(rec)
     assert rec["ok"] and rec["chips"] == 512 and rec["seq_shard"] is False and "no device" in r.stdout
+    # a train record at (16, 16): the residual stream split over sequence
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH, "--shape", "train_4k", "--pods", "1",
+           "--smoke", "--out", str(tmp_path / "train")]
+    r = subprocess.run(cmd, capture_output=True, text=True, env=_env(), timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    train = json.loads((tmp_path / "train" / "smoke" / f"{ARCH}__train_4k__1pod.json").read_text())
+    assert train["ok"] and train["chips"] == 256 and train["seq_shard"] is True
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(train["collectives"]["bytes_by_axis_op"]["model"])
     assert {"argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes", "alias_size_in_bytes",
             "generated_code_size_in_bytes", "peak_bytes_per_device"} <= set(rec["memory_analysis"])
     assert set(RefRoofline(1.0, 1.0, 1.0, 1).to_dict()) <= set(rec["roofline"])
@@ -208,6 +239,8 @@ def test_one_cell_a_family_on_the_production_mesh(family, families):
     and its logits stay split over the vocabulary."""
     rec = families[FAMILY_CELLS[family]]
     assert rec["ok"] and rec["chips"] == 256
+    # the one train cell of a family that splits the residual stream over sequence
+    assert rec["seq_shard"] is (family == "dense")
     assert rec["cost_analysis"]["flops"] > 0 and rec["cost_analysis"]["bytes_accessed"] > 0
     coll, rl = rec["collectives"], rec["roofline"]
     if family == "rwkv6":
