@@ -151,26 +151,52 @@ Phases, in order, one line each:
                    the plan each kernel launches (one pass or split-T,
                    slabs, vector width); device times, with torch.mul(q, s,
                    out=out) beside dequantize (yardstick only)
- 15. train         the port's training path (no kernel on it: launch counters
-                   reset at its start read 0 for all six at its end), in
-                   four parts: bf16 gradients of qwen3-14b at full width, 2
-                   layers, against those of an f32 copy of the weights, leaf
-                   by leaf, and the embedding's backward in bf16; one AdamW
-                   step on the card against the CPU on one block's
-                   full-width leaves, f32 moments and bf16 m with a factored
-                   v; 4 train steps of qwen3-14b at full width, 8 of 40
-                   layers (SyntheticLM batches of 8 x 128 from seed 0, the
-                   loop's default optimizer), each with its loss, grad norm,
-                   lr, step ms, forward+backward and optimizer ms (CUDA
-                   events), tokens/s, model-FLOP share and peak memory, a
-                   forward through the kernels under grad that must raise,
-                   a profile of one step, then two steps with bf16 m and a
-                   factored v; and examples/train_smoke_torch.py
+ 14b. adamw       the fused AdamW's three kernels (kernels/adamw: sq_norm,
+                   factored_stats, adamw_update) against their plain
+                   versions on the card, on the three optimizer paths (f32
+                   moments; bf16 m; bf16 m and a factored v) at qwen3-14b's
+                   full-width leaves (one block's wq, w_down, attn_norm, the
+                   final norm, lm_head 5120 x 151936) from a state at step
+                   7, the clip acting (the norm within 1e-12, f32 state
+                   within rtol 1e-6, p and m within one bf16 step); each
+                   kernel's device time at lm_head (CUDA-graph replay)
+                   against its bound, its plain version, and one PyTorch
+                   call where there is one (torch._fused_adamw_ on the f32
+                   path, torch.linalg.vector_norm beside sq_norm:
+                   yardsticks only, the port never calls them)
+ 15. train         the port's training path, in four parts: bf16 gradients
+                   of qwen3-14b at full width, 2 layers, against those of an
+                   f32 copy of the weights, leaf by leaf, and the
+                   embedding's backward in bf16; one AdamW step on the card
+                   (the fused kernels) against the CPU on one block's
+                   full-width leaves, f32 moments and bf16 m with a
+                   factored v; then, launch counters reset just before and
+                   read just after, the main path: 4 train steps of
+                   qwen3-14b at full width, 8 of 40 layers (SyntheticLM
+                   batches of 8 x 128 from seed 0, the loop's default
+                   optimizer), each with its loss, grad norm, lr, step ms,
+                   forward+backward and optimizer ms (CUDA events) beside
+                   the optimizer's bound, tokens/s, model-FLOP share and
+                   peak memory, a forward through the kernels under grad
+                   that must raise, a profile of one more step; the same 5
+                   steps from the same state through the step captured as
+                   one CUDA graph as training/loop.train captures it (2
+                   warm calls, a capture, 3 replays), gated equal bit for
+                   bit in losses and every parameter, then 3 replays timed
+                   (host clock and CUDA events) and one profiled (busy and
+                   idle share, the graph's pool, its launches per replay
+                   from the device trace: sq_norm and adamw_update 14
+                   each, gated); two steps with bf16 m and a factored v;
+                   the launches gated exact (sq_norm and adamw_update 14 a
+                   step, factored_stats 13 a factored step:
+                   train_launches); and examples/train_smoke_torch.py
                    --simulate-crash on the card in a subprocess
                    (deterministic algorithms), whose losses after the resume
                    must replay the uninterrupted run's
- 16. distributed   the distributed layer (no kernel on it: launch counters
-                   reset at its start read 0 for all six at its end), with
+ 16. distributed   the distributed layer (launch counters reset at its
+                   start read 0 at its end in this process; the loop's
+                   subprocess launches the optimizer's kernels exactly as
+                   its 4 steps' leaves give them), with
                    the train phase's state freed: (a) an NCCL process group
                    of world size 1 over an in-process store, the (1, 1)
                    smoke mesh on the card, and full 40-layer qwen3-14b's
@@ -194,9 +220,10 @@ Phases, in order, one line each:
                    losses bit for bit, and the second run's checkpoint
                    restored under the (1, 1) mesh's shardings, each leaf
                    bit for bit the file's; the group destroyed at the end
- 17. tensor-parallel  tensor parallelism over `model` (no kernel on it:
-                   launch counters reset at its start read 0 for all six
-                   at its end, in this process and on each rank): (a)
+ 17. tensor-parallel  tensor parallelism over `model` (launch counters
+                   reset at its start read 0 at its end in this process;
+                   each rank and the --model 1 run launch the optimizer's
+                   kernels exactly as their 2 launcher steps give them): (a)
                    full-width qwen3-14b, 2 of 40 layers, on an f32 copy of
                    the seed's weights: one process's loss and gradients
                    (make_grad_fn, to a file), then 2 spawned gloo ranks
@@ -256,11 +283,12 @@ Phases, in order, one line each:
                    bound, kernel ms and library ms (CUDA-graph replay,
                    median of 5; SDPA for flash and paged decode,
                    torch.mul for dequantize, none for the others)
- 20. kernels       one JSON line describing the six kernels: `launches` is
+ 20. kernels       one JSON line describing the nine kernels: `launches` is
                    the wrappers' count over the main paths' runs (eager
                    launches and launches recorded into graphs at capture;
                    flash and paged decode summed over the five serve paths,
-                   the cluster's among them, `by_path` each one's share),
+                   the cluster's among them, `by_path` each one's share;
+                   the fused AdamW's over phase train's main path),
                    `replayed_launches` the launches the main paths' graph
                    replays ran on the card, from the device trace
 
@@ -287,6 +315,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_PER_S  # noqa: E402  (the scans' f32 work)
+from repro_torch.kernels import TRACE_SYMBOLS  # noqa: E402
 from repro_torch.launch.micro import bound_ms, graph_ms  # noqa: E402  (CUDA-graph timer, the card's bound)
 ARCH = "qwen3-14b"
 SEED = 0
@@ -1675,7 +1704,7 @@ def phase_full_cell(phase: str, arch: str, n_layers=None):
 MODELS = {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b", "olmoe": "olmoe-1b-7b", "minicpm3": "minicpm3-4b",
           "whisper": "whisper-small"}
 PROMPT, DECODE, HALF = 128, 8, 64
-KERNELS = ("flash", "paged_decode", "quantize", "dequantize", "wkv", "ssd")
+KERNELS = tuple(TRACE_SYMBOLS)  # every counted kernel: the six Pallas kernels' and the fused AdamW's three
 
 
 def expected_launches(cfg, prefills: int, tokens: int):
@@ -2173,12 +2202,241 @@ def phase_kv_codec(serve_blocks, slab):
     return rec_q, rec_d, counts
 
 
+# -------------------------------------------------------------------- adamw
+ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
+ADAMW_KERNELS = ("sq_norm", "adamw_update", "factored_stats")
+# the fused AdamW's kernels (kernels/adamw) against their plain versions on
+# the card, at qwen3-14b's full-width leaves as train_optimizer_check draws
+# them (one block's wq, w_down and attn_norm, the 1-D final norm) and at
+# lm_head (5120 x 151936, 0.78 B entries, the largest leaf), from a state at
+# step 7, on the three optimizer paths of the reference's configs
+ADAMW_LEAVES = {"wq": (1, 5120, 5120), "w_down": (1, 17408, 5120), "attn_norm": (1, 5120), "final_norm": (5120,),
+                "lm_head": (5120, 151936)}
+ADAMW_PATHS = (("f32 moments", "float32", False), ("bf16 m", "bfloat16", False),
+               ("bf16 m, factored v", "bfloat16", True))
+ADAMW_TIMED = "lm_head"
+# kernel and plain version do the same f32 operations element by element,
+# each rounded alike (no FMA contraction), so p, m and v agree bit for bit
+# where their inputs do; the sums (norm, factored means) are f64 in another
+# order, rounded once: the norm within ADAMW_NORM_RTOL, vr, vc and the
+# divisor within the optimizer check's rtol, and what reads them (p, m)
+# within one bf16 step
+ADAMW_NORM_RTOL = 1e-12
+# operations an element, for the bound: f32 (clip 1, m 3, v 4, v^ 1, the
+# update 7, sqrt and division counted as one), f64 for the sums
+ADAMW_OPS = {"sq_norm": 2, "factored_stats": 4, "adamw_update": 17}
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM (NVIDIA's data sheet)
+F64_FLOP_PER_S = 34e12  # f64 outside the tensor cores, H100 SXM (NVIDIA's data sheet)
+
+
+def _adamw_bound(kernel: str, n: int, p_bytes: int, m_bytes: int, v_bytes: int, factors: int):
+    """(ms, by) of one kernel over a leaf of ``n`` entries: each input read
+    once, each output written once (``factors``: the entries of vr and vc,
+    beside them the divisor and the step's 4 scalars), against its
+    operations."""
+    if kernel == "sq_norm":
+        nbytes, rate = p_bytes * n + 8, F64_FLOP_PER_S
+    elif kernel == "factored_stats":
+        nbytes, rate = p_bytes * n + 2 * 4 * factors + 4 + 16, F64_FLOP_PER_S
+    else:
+        nbytes, rate = (3 * p_bytes + 2 * m_bytes + 2 * v_bytes) * n + 4 * factors + 4 + 16, F32_FLOP_PER_S
+    return bound_ms(nbytes, ADAMW_OPS[kernel] * n, rate)
+
+
+def _adamw_inputs(ocfg, gen):
+    """Every leaf of ADAMW_LEAVES on the card: bf16 p (scale D^-1/2) and g
+    (scale 1e-4: the clip acts), m (scale 1e-4, the path's dtype), v or vr
+    and vc (uniform, 1e-8)."""
+    import torch
+
+    from repro_torch.training import optim
+
+    mdt = torch.bfloat16 if ocfg.moment_dtype == "bfloat16" else torch.float32
+
+    def randn(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    leaves = {}
+    for name, shape in ADAMW_LEAVES.items():
+        leaf = {"p": randn(shape, 5120**-0.5, torch.bfloat16), "g": randn(shape, 1e-4, torch.bfloat16),
+                "m": randn(shape, 1e-4, mdt)}
+        if ocfg.factored_second_moment and optim._is_factored(shape):
+            leaf["vr"] = torch.rand(shape[:-1], generator=gen, device="cuda") * 1e-8
+            leaf["vc"] = torch.rand(shape[:-2] + shape[-1:], generator=gen, device="cuda") * 1e-8
+        else:
+            leaf["v"] = torch.rand(shape, generator=gen, device="cuda") * 1e-8
+        leaves[name] = leaf
+    return leaves
+
+
+def _adamw_step(leaf, scalars, ocfg, plain: bool):
+    """One step of ``leaf`` (a dict of its tensors, updated in place) through
+    the kernels or their plain versions; returns the factored divisor."""
+    from repro_torch.kernels import adamw
+
+    b1, b2 = ocfg.betas
+    denom = None
+    if "vr" in leaf:
+        if plain:
+            import torch
+
+            denom = torch.empty(leaf["g"].shape[:-2], dtype=torch.float32, device="cuda")
+            adamw.factored_stats_ref(leaf["g"], leaf["vr"], leaf["vc"], denom, scalars, b2)
+        else:
+            denom = adamw.factored_stats(leaf["g"], leaf["vr"], leaf["vc"], scalars, b2)
+    if plain:
+        adamw.adamw_update_ref(leaf["p"], leaf["g"], leaf["m"], leaf.get("v"), leaf.get("vr"), leaf.get("vc"), denom,
+                               scalars, b1, b2, ocfg.eps, ocfg.weight_decay, leaf["p"].dim() >= 2)
+    else:
+        adamw.adamw_update(leaf["p"], leaf["g"], leaf["m"], leaf.get("v"), scalars, b1=b1, b2=b2, eps=ocfg.eps,
+                           weight_decay=ocfg.weight_decay, vr=leaf.get("vr"), vc=leaf.get("vc"), denom=denom)
+    return denom
+
+
+def _adamw_times(leaf, scalars, ocfg, recs, path):
+    """Device ms (CUDA-graph replay) of each kernel on ``leaf``, of its plain
+    version, and on the f32 path of torch._fused_adamw_ on f32 copies of p
+    and g with the same f32 m and v (a yardstick the port never calls: its
+    own rounding, and 28 bytes an entry against the kernel's 22); into
+    recs[kernel][path]."""
+    import torch
+
+    from repro_torch.kernels import adamw
+
+    p, g, m = leaf["p"], leaf["g"], leaf["m"]
+    b1, b2 = ocfg.betas
+    factored = "vr" in leaf
+    n, v_bytes = p.numel(), 0 if factored else 4
+    factors = leaf["vr"].numel() + leaf["vc"].numel() if factored else 0
+    plain = {k: t.clone() for k, t in leaf.items()}
+    denom = adamw.factored_stats(g, leaf["vr"], leaf["vc"], scalars, b2) if factored else None
+    plain_denom = denom.clone() if factored else None
+    cases = {"adamw_update": (
+        lambda: adamw.adamw_update(p, g, m, leaf.get("v"), scalars, b1=b1, b2=b2, eps=ocfg.eps,
+                                   weight_decay=ocfg.weight_decay, vr=leaf.get("vr"), vc=leaf.get("vc"), denom=denom),
+        lambda: adamw.adamw_update_ref(plain["p"], g, plain["m"], plain.get("v"), plain.get("vr"), plain.get("vc"),
+                                       plain_denom, scalars, b1, b2, ocfg.eps, ocfg.weight_decay, p.dim() >= 2))}
+    if path == ADAMW_PATHS[0][0]:
+        cases["sq_norm"] = (lambda: adamw.sq_norms([g]), lambda: adamw.sq_norm_ref(g))
+    if factored:
+        cases["factored_stats"] = (lambda: adamw.factored_stats(g, leaf["vr"], leaf["vc"], scalars, b2),
+                                   lambda: adamw.factored_stats_ref(g, plain["vr"], plain["vc"], plain_denom, scalars,
+                                                                    b2))
+    for kernel, (fn, plain_fn) in cases.items():
+        ms, by = _adamw_bound(kernel, n, p.element_size(), m.element_size(), v_bytes, factors)
+        rec = {"shape": f"{ADAMW_TIMED} {'x'.join(map(str, p.shape))} bf16, m {str(m.dtype)[6:]}",
+               "ms": graph_ms(fn, 5, 3), "plain_ms": graph_ms(plain_fn, 2, 3), "bound_ms": ms, "bound_by": by,
+               "library_ms": None}
+        if kernel == "sq_norm":  # one call: the f64 sum of squares, and its root
+            rec["library_ms"] = graph_ms(lambda: torch.linalg.vector_norm(g, dtype=torch.float64), 5, 3)
+            rec["library"] = "torch.linalg.vector_norm(g, dtype=float64)"
+        if kernel == "adamw_update" and "v" in leaf and m.dtype == torch.float32:
+            p32, g32, m32, v32 = p.float(), g.float(), m.clone(), leaf["v"].clone()
+            steps = torch.full((), 8.0, device="cuda")
+            lr = float(scalars[1])
+            rec["library_ms"] = graph_ms(lambda: torch._fused_adamw_(
+                [p32], [g32], [m32], [v32], [], [steps], lr=lr, beta1=b1, beta2=b2, weight_decay=ocfg.weight_decay,
+                eps=ocfg.eps, amsgrad=False, maximize=False), 5, 3)
+            rec["library"] = "torch._fused_adamw_ on f32 copies of p and g, f32 m and v (28 B an entry)"
+            del p32, g32, m32, v32
+        recs.setdefault(kernel, {})[path] = rec
+        line("adamw", kernel=kernel, path=path.replace(" ", "_"), shape=rec["shape"].replace(" ", "_"),
+             kernel_ms=f"{rec['ms']:.4f}", plain_ms=f"{rec['plain_ms']:.4f}",
+             library_ms="null" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}",
+             bound_ms=f"{ms:.4f}", bound_by=by, of_bound=f"{rec['ms'] / ms:.2f}x")
+    del plain
+    torch.cuda.empty_cache()
+
+
+def phase_adamw():
+    """The fused AdamW's three kernels against their plain versions on the
+    card, on every path, at ADAMW_LEAVES; then each kernel's device time
+    at lm_head against its bound, its plain version and one PyTorch call.
+    Returns {kernel: record} for the kernels line: max |err| over every
+    path and leaf, the f32 path's times (the factored kernel's from its
+    path), every path's in ``paths``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import adamw
+    from repro_torch.training import optim
+
+    t0 = time.perf_counter()
+    base = optim.OptimizerConfig(warmup_steps=2, total_steps=50)
+    step = torch.tensor(8, dtype=torch.int32, device="cuda")  # the step taken: state at 7
+    t = step.float()
+    errs = {"sq_norm": 0.0, "factored_stats": 0.0, "adamw_update": 0.0}
+    times = {}
+    for path, mdt, factored in ADAMW_PATHS:
+        ocfg = dataclasses.replace(base, moment_dtype=mdt, factored_second_moment=factored)
+        leaves = _adamw_inputs(ocfg, torch.Generator(device="cuda").manual_seed(SEED))
+        grads = [leaf["g"] for leaf in leaves.values()]
+        norms = adamw.sq_norms(grads)
+        plain_norms = torch.stack([adamw.sq_norm_ref(g) for g in grads])
+        norm_err = float(((norms - plain_norms).abs() / plain_norms).max())
+        errs["sq_norm"] = max(errs["sq_norm"], float((norms - plain_norms).abs().max()))
+        gnorm = torch.sqrt(norms.sum().to(torch.float32))
+        b1, b2 = ocfg.betas
+        scalars = torch.stack([torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0),
+                               optim.lr_schedule(ocfg, step), 1 - b1**t, 1 - b2**t])
+        worst = {"p_steps": 0.0, "m_steps": 0.0, "state_rel": 0.0, "p_equal": 0, "entries": 0}
+        for name, leaf in leaves.items():
+            plain = {k: v.clone() for k, v in leaf.items()}
+            p0 = leaf["p"].clone()
+            denom = _adamw_step(leaf, scalars, ocfg, False)
+            plain_denom = _adamw_step(plain, scalars, ocfg, True)
+            torch.cuda.synchronize()
+            state = [(k, leaf[k], plain[k]) for k in ("v", "vr", "vc") if k in leaf]
+            if denom is not None:
+                state.append(("denom", denom, plain_denom))
+            for k, a, b in state:
+                rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                worst["state_rel"] = max(worst["state_rel"], rel)
+                kernel = "factored_stats" if k in ("vr", "vc", "denom") else "adamw_update"
+                errs[kernel] = max(errs[kernel], float((a - b).abs().max()))
+            d = (leaf["p"].float() - plain["p"].float()).abs()
+            worst["p_steps"] = max(worst["p_steps"], float((d / _bf16_step(torch.maximum(p0.abs(),
+                                                                                         plain["p"].abs()))).max()))
+            worst["p_equal"] += int((d == 0).sum())
+            worst["entries"] += d.numel()
+            dm = (leaf["m"].float() - plain["m"].float()).abs()
+            if leaf["m"].dtype == torch.bfloat16:
+                worst["m_steps"] = max(worst["m_steps"], float((dm / _bf16_step(plain["m"])).max()))
+            else:
+                worst["state_rel"] = max(worst["state_rel"], float((dm / plain["m"].abs().clamp(min=1e-30)).max()))
+            errs["adamw_update"] = max(errs["adamw_update"], float(d.max()), float(dm.max()))
+            del plain, p0
+        line("adamw", check=f"kernels vs plain versions on the card, {path}".replace(" ", "_"),
+             leaves=",".join(ADAMW_LEAVES), entries=worst["entries"], grad_norm=f"{float(gnorm):.6f}",
+             clip_scale=f"{float(scalars[0]):.6f}", norm_max_rel_err=f"{norm_err:.3e}", norm_rtol=ADAMW_NORM_RTOL,
+             state_max_rel_err=f"{worst['state_rel']:.3e}", state_rtol=OPT_STATE_RTOL,
+             p_max_bf16_steps=f"{worst['p_steps']:.3f}", m_max_bf16_steps=f"{worst['m_steps']:.3f}",
+             p_bitwise_share=f"{worst['p_equal'] / worst['entries']:.6f}")
+        if (norm_err > ADAMW_NORM_RTOL or worst["state_rel"] > OPT_STATE_RTOL or worst["p_steps"] > 1
+                or worst["m_steps"] > 1 or not math.isfinite(float(gnorm)) or float(scalars[0]) >= 1.0):
+            raise AssertionError(f"adamw: a kernel disagrees with its plain version ({path}): {worst}, "
+                                 f"norm {norm_err:.3e}")
+        _adamw_times(leaves[ADAMW_TIMED], scalars, ocfg, times, path)
+        del leaves, grads
+        torch.cuda.empty_cache()
+    f32 = ADAMW_PATHS[0][0]
+    recs = {}
+    for kernel, by_path in times.items():
+        main = by_path.get(f32) or next(iter(by_path.values()))
+        recs[kernel] = dict(main, max_abs_err=errs[kernel], paths=by_path)
+    line("adamw", seconds=f"{time.perf_counter() - t0:.1f}")
+    return recs
+
+
 # ----------------------------------------------------------------- training
 # qwen3-14b at full width, depth cut: 8 of 40 layers is 4.20 B parameters,
 # whose bf16 weights and gradients and f32 AdamW moments take 50.4 GB of
 # the card's 80; 40 layers would take ~177 GB
 TRAIN_LAYERS = 8
 TRAIN_STEPS = 4
+TRAIN_TIMED_REPLAYS = 3  # the captured step's replays timed after the TRAIN_STEPS + 1 compared
+TRAIN_LEAN_STEPS = 2  # eager steps with bf16 m and a factored v
 TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the train loop's DataConfig
 GRAD_LAYERS = 2  # the bf16-vs-f32 gradient check: both copies and their gradients fit beside each other
 # bf16 gradients against those of an f32 copy of the same weights: the share
@@ -2385,17 +2643,24 @@ class OptimizerEvents:
 
 
 def train_steps(base):
-    """(a) TRAIN_STEPS steps of the train loop's step on qwen3-14b at full
-    width, TRAIN_LAYERS layers, the loop's default optimizer (f32 moments),
-    SyntheticLM batches from seed 0; the grad guard; a profile of one step;
-    then two steps with bf16 m and a factored v."""
+    """(a) the train loop's step on qwen3-14b at full width, TRAIN_LAYERS
+    layers, the loop's default optimizer (f32 moments), SyntheticLM batches
+    from seed 0: TRAIN_STEPS eager steps and a profile of one more; then
+    the same TRAIN_STEPS + 1 steps from the same state through the step
+    captured as one CUDA graph, as ``train`` captures it (its first
+    WARM_CALLS calls eager, the next captures and replays), gated equal to
+    the eager steps bit for bit in losses and in every parameter, and
+    TRAIN_TIMED_REPLAYS more replays timed and one profiled; the grad
+    guard; two eager steps with bf16 m and a factored v.  Returns (the
+    eager steps' median ms, the record of the captured step)."""
     import dataclasses
     import math
 
     import torch
 
+    from repro_torch import graphs
     from repro_torch.models import api
-    from repro_torch.models.common import count_params
+    from repro_torch.models.common import count_params, tree_flatten
     from repro_torch.training import optim
     from repro_torch.training.loop import default_optimizer, loss_and_grads, make_train_step
 
@@ -2448,13 +2713,15 @@ def train_steps(base):
         (o0, o1), = ev.events
         return state, met, wall, begin.elapsed_time(o0), o0.elapsed_time(o1)
 
-    steps = []
+    steps, losses = [], []
     for step in range(TRAIN_STEPS):
         state, met, wall, fb_ms, opt_ms = timed_step(step_fn, state, step)
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         steps.append(wall)
+        losses.append(loss)
         line("train", step=step + 1, loss=f"{loss:.5f}", grad_norm=f"{gnorm:.4f}", lr=f"{float(met['lr']):.4e}",
              step_ms=f"{wall:.3f}", fwd_bwd_ms=f"{fb_ms:.3f}", optimizer_ms=f"{opt_ms:.3f}",
+             optimizer_bound_ms=f"{_optimizer_bound_ms(params, state):.3f}",
              tokens_per_s=f"{tokens / wall * 1e3:.1f}", mfu=f"{flops / (wall * 1e-3) / BF16_FLOP_PER_S:.4f}",
              peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
@@ -2463,9 +2730,84 @@ def train_steps(base):
     line("train", what=f"median of steps 2-{TRAIN_STEPS}", step_ms=f"{warm:.3f}",
          tokens_per_s=f"{tokens / warm * 1e3:.1f}", mfu=f"{flops / (warm * 1e-3) / BF16_FLOP_PER_S:.4f}")
     batch = _train_batch(cfg, TRAIN_STEPS)
-    profile_call(lambda: step_fn(params, state, batch), "train", "profile_train_step.txt",
-                 f"one train step (step {TRAIN_STEPS + 1}), under torch.profiler")
-    del state, step_fn
+    out = {}
+    eager_wall, eager_busy, _, _ = profile_call(lambda: out.update(met=step_fn(params, state, batch)[2]), "train",
+                                                "profile_train_step.txt",
+                                                f"one eager train step (step {TRAIN_STEPS + 1}), under torch.profiler")
+    losses.append(float(out["met"]["loss"]))
+    want = [t.cpu() for t in tree_flatten(params)[0]]
+    del state, params, out
+    torch.cuda.empty_cache()
+
+    # the same steps from the same state, captured as train() captures them
+    params = api.init_params(cfg, SEED, "cuda")
+    state = optim.init_state(ocfg, params)
+    captured = graphs.capture(step_fn, params, state, _train_batch(cfg, 0), held=(0, 1), warm_on_calls=True)
+    torch.cuda.reset_peak_memory_stats()
+    got, walls = [], []
+    for step in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = captured(params, state, _train_batch(cfg, step))
+        got.append(float(met["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recorded = {k: n for k, n in captured.launches.items() if n}
+    differ = [i for i, (a, b) in enumerate(zip(tree_flatten(params)[0], want)) if not torch.equal(a.cpu(), b)]
+    compared = captured.replays
+    line("train", check=f"the captured step against the eager step from the same state, {TRAIN_STEPS + 1} steps: "
+         f"{graphs.WARM_CALLS} warm calls, then {compared} replays".replace(" ", "_"),
+         losses_captured=",".join(f"{x:.6f}" for x in got), losses_eager=",".join(f"{x:.6f}" for x in losses),
+         losses_bitwise=got == losses, leaves=len(want), leaves_differing=len(differ),
+         host_ms_per_call=",".join(f"{x:.3f}" for x in walls), capture_s=f"{captured.capture_s:.3f}",
+         pool_gb=f"{captured.pool_bytes / 1e9:.3f}", peak_mem_gb=f"{peak_gb:.2f}",
+         recorded_launches=json.dumps(recorded).replace(" ", ""))
+    if got != losses or differ or compared != TRAIN_STEPS + 1 - graphs.WARM_CALLS:
+        raise AssertionError(f"train: the captured step is not the eager step bit for bit: losses {got} against "
+                             f"{losses}, leaves differing {differ}")
+    del want
+
+    # the captured step's time: TRAIN_TIMED_REPLAYS replays, host clock and
+    # CUDA events, then one under torch.profiler with its device trace
+    host, device = [], []
+    for step in range(TRAIN_STEPS + 1, TRAIN_STEPS + 1 + TRAIN_TIMED_REPLAYS):
+        batch = _train_batch(cfg, step)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        captured(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    batch = _train_batch(cfg, TRAIN_STEPS + 1 + TRAIN_TIMED_REPLAYS)
+    graph_wall, graph_busy, traced, _ = profile_call(lambda: captured(params, state, batch), "train",
+                                                     "profile_train_step_graph.txt",
+                                                     "one replay of the captured train step, under torch.profiler")
+    per_replay = {k: n for k, n in traced.items() if n}
+    graph_ms_ = statistics.median(host)
+    rec = {"eager_step_ms": warm, "graph_step_ms": graph_ms_, "graph_device_ms": statistics.median(device),
+           "eager_idle_share": max(0.0, 1 - eager_busy / eager_wall),
+           "eager_idle_share_unprofiled": max(0.0, 1 - eager_busy / warm),
+           "graph_idle_share": max(0.0, 1 - graph_busy / graph_wall),
+           "graph_idle_share_unprofiled": max(0.0, 1 - graph_busy / graph_ms_), "pool_bytes": captured.pool_bytes,
+           "per_replay": per_replay, "replays": captured.replays, "peak_mem_gb": peak_gb,
+           "capture_s": captured.capture_s}
+    line("train", what=f"eager against captured step, median of {TRAIN_TIMED_REPLAYS} replays".replace(" ", "_"),
+         eager_step_ms=f"{warm:.3f}", graph_step_ms=f"{graph_ms_:.3f}", graph_device_ms=f"{rec['graph_device_ms']:.3f}",
+         eager_busy_ms=f"{eager_busy:.3f}", graph_busy_ms=f"{graph_busy:.3f}",
+         eager_idle_share=f"{rec['eager_idle_share']:.3f}", graph_idle_share=f"{rec['graph_idle_share']:.3f}",
+         eager_idle_share_unprofiled=f"{rec['eager_idle_share_unprofiled']:.3f}",
+         graph_idle_share_unprofiled=f"{rec['graph_idle_share_unprofiled']:.3f}",
+         pool_gb=f"{captured.pool_bytes / 1e9:.3f}", tokens_per_s=f"{tokens / graph_ms_ * 1e3:.1f}",
+         replays=captured.replays, launches_per_replay=json.dumps(per_replay).replace(" ", ""))
+    leaves = tree_flatten(params)[0]
+    want_per_replay = {"sq_norm": len(leaves), "adamw_update": len(leaves)}
+    if per_replay != want_per_replay or recorded != want_per_replay:
+        raise AssertionError(f"train: a replay launched {per_replay} and the capture recorded {recorded}, not "
+                             f"{want_per_replay}")
+    del captured, state, step_fn
     torch.cuda.empty_cache()
 
     # the memory options the reference gives kimi-k2: bf16 m, factored v
@@ -2473,18 +2815,33 @@ def train_steps(base):
     state = optim.init_state(ocfg, params)
     lean_gb = _state_gb(state)
     step_fn = make_train_step(cfg, ocfg)
-    for step in range(2):
+    for step in range(TRAIN_LEAN_STEPS):
         state, met, wall, fb_ms, opt_ms = timed_step(step_fn, state, step)
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         line("train", options="bf16 m, factored v", step=step + 1, state_gb=f"{lean_gb:.2f}",
              f32_state_gb=f"{f32_state_gb:.2f}", loss=f"{loss:.5f}", grad_norm=f"{gnorm:.4f}", step_ms=f"{wall:.3f}",
              fwd_bwd_ms=f"{fb_ms:.3f}", optimizer_ms=f"{opt_ms:.3f}",
+             optimizer_bound_ms=f"{_optimizer_bound_ms(params, state):.3f}",
              peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError("train: the step with bf16 m and a factored v is not finite")
     del state, params
     torch.cuda.empty_cache()
-    return warm
+    return warm, rec
+
+
+def _optimizer_bound_ms(params, state) -> float:
+    """The least ms of one optimizer step over these leaves at HBM_BW: the
+    norm reads every gradient once; the update reads p, g, m and v (or vr
+    and vc) once and writes p, m and v (vr and vc) once."""
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.models.common import tree_flatten
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+    p = nbytes(params)
+    return (p + 3 * p + 2 * nbytes(state["m"]) + 2 * nbytes(state["v"])) / HBM_BW * 1e3
 
 
 def train_resume():
@@ -2517,29 +2874,64 @@ def train_resume():
         raise AssertionError("train: the losses after the resume do not replay the uninterrupted run")
 
 
+def optimizer_launches(cfg, steps: int, factored: bool = False):
+    """Each kernel's launches over ``steps`` optimizer steps of ``cfg``'s
+    leaves: one sq_norm and one adamw_update a leaf, one factored_stats a
+    factored leaf where ``factored``; no other kernel."""
+    from repro_torch import kernels
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import optim
+
+    shapes = [tuple(t.shape) for t in tree_flatten(api.param_specs(cfg))[0]]
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    want.update(sq_norm=len(shapes) * steps, adamw_update=len(shapes) * steps,
+                factored_stats=sum(map(optim._is_factored, shapes)) * steps if factored else 0)
+    return want
+
+
+def train_launches(cfg):
+    """The kernel launches of phase train's main path, (a), from ``cfg``'s
+    leaf list: the eager steps (TRAIN_STEPS and the profiled one), the
+    captured step's warm calls and its capture (a replay runs no wrapper)
+    with f32 moments, and the TRAIN_LEAN_STEPS eager steps with a
+    factored v."""
+    from repro_torch import graphs
+
+    f32 = optimizer_launches(cfg, TRAIN_STEPS + 1 + graphs.WARM_CALLS + 1)
+    lean = optimizer_launches(cfg, TRAIN_LEAN_STEPS, factored=True)
+    return {k: f32[k] + lean[k] for k in f32}
+
+
 def phase_train():
     """The port's training path on the card: (b) gradients, (c) the
-    optimizer, (a) full-width steps and the memory options, (d) crash and
-    resume.  Every kernel's launch count reads 0 over the phase: training
-    runs the plain versions, as the reference trains through its plain
-    attention and scans.  Returns the median step ms of (a)."""
+    optimizer, (a) full-width steps, eager and captured, and the memory
+    options, (d) crash and resume.  The launch counters are reset just
+    before (a) and read just after: the fused AdamW's kernels launch
+    exactly as ``train_launches`` reckons from the leaf list (forward and
+    backward run the plain versions, as the reference trains through its
+    plain attention and scans).  Returns (the median eager step ms of (a),
+    the captured step's record, the counts)."""
+    import dataclasses
+
     import torch
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
 
     base = get_config(ARCH)
-    kernels.reset_launch_counts()
     train_grad_check(base)
     train_optimizer_check()
-    step_ms = train_steps(base)
-    train_resume()
+    kernels.reset_launch_counts()
+    step_ms, graph = train_steps(base)
     counts = kernels.launch_counts()
-    line("train", launches=json.dumps(counts).replace(" ", ""))
-    if any(counts.values()):
-        raise AssertionError(f"train: kernels launched on the training path: {counts}")
+    want = train_launches(dataclasses.replace(base, n_layers=TRAIN_LAYERS))
+    line("train", launches=json.dumps(counts).replace(" ", ""), expected=json.dumps(want).replace(" ", ""))
+    if counts != want:
+        raise AssertionError(f"train: the main path launched {counts}, not {want}")
+    train_resume()
     torch.cuda.empty_cache()
-    return step_ms
+    return step_ms, graph, counts
 
 
 # ---------------------------------------------------------------- distributed
@@ -2756,6 +3148,7 @@ def _loop_child(root: str, result: str):
     import torch
     import torch.distributed as dist
 
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import train as launcher
@@ -2784,6 +3177,7 @@ def _loop_child(root: str, result: str):
     out["dp_s"] = time.perf_counter() - t0
     out["plain"], out["dp"] = plain["losses"], dp["losses"]
 
+    out["launches"] = kernels.launch_counts()
     t0 = time.perf_counter()
     assert init_process_group("cuda")
     try:
@@ -2816,7 +3210,8 @@ def _loop_child(root: str, result: str):
 
 def dist_rest(mesh):
     """(d) gpipe at one stage over NCCL; the data-parallel loop and the
-    sharded restore (``_loop_child``, in a subprocess)."""
+    sharded restore (``_loop_child``, in a subprocess).  Returns the kernel
+    launches of the loop's process."""
     import multiprocessing
     import tempfile
 
@@ -2857,6 +3252,7 @@ def dist_rest(mesh):
         raise AssertionError("distributed: the data-parallel loop's losses are not the loop's bit for bit")
     if r["differ"] or not r["dtensor"] or r["device"] != "cuda" or r["step"] != DIST_STEPS:
         raise AssertionError("distributed: the sharded restore is not the checkpoint bit for bit")
+    return out["launches"]
 
 
 def phase_distributed(step_ms):
@@ -2882,13 +3278,21 @@ def phase_distributed(step_ms):
         dist_rules()
         dist_compression(mesh, step_ms)
         dist_gloo_cuda()
-        dist_rest(mesh)
+        child = dist_rest(mesh)
     finally:
         dist.destroy_process_group()
     counts = kernels.launch_counts()
-    line("distributed", launches=json.dumps(counts).replace(" ", ""))
-    if any(counts.values()):
-        raise AssertionError(f"distributed: kernels launched: {counts}")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    # the loop child's two runs of DIST_STEPS steps each, f32 moments
+    want = optimizer_launches(dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS), 2 * DIST_STEPS)
+    line("distributed", launches=json.dumps(counts).replace(" ", ""),
+         loop_child_launches=json.dumps(child).replace(" ", ""), expected=json.dumps(want).replace(" ", ""))
+    if any(counts.values()) or child != want:
+        raise AssertionError(f"distributed: kernels launched {counts} here and {child} in the loop's process, not "
+                             f"none and {want}")
     torch.cuda.empty_cache()
 
 
@@ -2963,6 +3367,7 @@ def _tp_reference(root: str):
 def _tp_launch_one(root: str, result: str):
     """(b), in a fresh process: ``launch/train.main --full --layers
     TP_LAYERS --data 1 --model 1`` (one rank, NCCL at world size 1)."""
+    from repro_torch import kernels
     from repro_torch.launch import train as launcher
 
     t0 = time.perf_counter()
@@ -2970,7 +3375,7 @@ def _tp_launch_one(root: str, result: str):
                          str(TP_STEPS), "--ckpt-dir", os.path.join(root, "one"), "--data", "1", "--model", "1",
                          "--device", "cuda"])
     with open(result, "w") as f:
-        json.dump({"losses": res["losses"], "s": time.perf_counter() - t0}, f)
+        json.dump({"losses": res["losses"], "s": time.perf_counter() - t0, "launches": kernels.launch_counts()}, f)
 
 
 def _worst_leaf(params, grads, ref_grads):
@@ -3217,8 +3622,12 @@ def phase_tensor_parallel():
          losses_model1=",".join(f"{x:.6f}" for x in one["losses"]), max_rel_gap=f"{rel:.3e}", rtol=TP_LAUNCH_RTOL,
          model2_s=f"{outs[0]['launch_s']:.1f}", model1_s=f"{one['s']:.1f}")
     counts = kernels.launch_counts()
+    # each rank's and the --model 1 run's launcher steps (f32 moments); the
+    # gradient checks (a) and (c) run no optimizer
+    want = optimizer_launches(cfg, TP_STEPS)
     line("tensor-parallel", launches=json.dumps(counts).replace(" ", ""),
          rank_launches=json.dumps([o["launches"] for o in outs]).replace(" ", ""),
+         model1_launches=json.dumps(one["launches"]).replace(" ", ""), expected=json.dumps(want).replace(" ", ""),
          seconds=f"{time.perf_counter() - t0:.1f}")
     torch.cuda.empty_cache()
     for r, o in enumerate(outs):
@@ -3232,11 +3641,12 @@ def phase_tensor_parallel():
         if set(o["seq"]["collective_bytes_on"]) != {"all-reduce", "all-gather", "reduce-scatter"}:
             raise AssertionError(f"tensor-parallel (c): rank {r} sent {o['seq']['collective_bytes_on']}: the split "
                                  "stream all-gathers and reduce-scatters over model")
-        if o["launch_losses"] != losses or any(o["launches"].values()):
+        if o["launch_losses"] != losses or o["launches"] != want:
             raise AssertionError(f"tensor-parallel: rank {r}'s launcher losses or launch counts differ: {o}")
-    if len(losses) != TP_STEPS or rel > TP_LAUNCH_RTOL or any(counts.values()):
+    if len(losses) != TP_STEPS or rel > TP_LAUNCH_RTOL or any(counts.values()) or one["launches"] != want:
         raise AssertionError(f"tensor-parallel: --model {TP_RANKS} losses {losses} against --model 1 "
-                             f"{one['losses']} (rtol {TP_LAUNCH_RTOL}), launches {counts}")
+                             f"{one['losses']} (rtol {TP_LAUNCH_RTOL}), launches {counts} here and "
+                             f"{one['launches']} in the --model 1 run, not none and {want}")
 
 
 # -------------------------------------------------------------------- dry run
@@ -3252,6 +3662,9 @@ DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("glm4-9b", "decode_32k"))  # on (16,
 # residual stream stayed whole on every model rank: per card, temporaries
 # and peak, and the all-reduce bytes over model (counts, not measurements)
 DRYRUN_WHOLE_STREAM = {"temp_gb": 79.45, "peak_gb": 80.03, "model_all_reduce_gb": 325.7}
+# the same cell's temp and peak while AdamW ran as ~25 eager ops a leaf, with
+# f32 temporaries beside every whole gradient, and the op that set the peak
+DRYRUN_EAGER_ADAMW = {"temp_gb": 79.45, "peak_gb": 80.03, "peak_at_op": "aten.div,op_29963_of_30142"}
 
 
 def _terms(lowered, cfg, shape):
@@ -3421,6 +3834,7 @@ def phase_dryrun(train_step_ms: float, serve_times, cells=()):
                  saved_for_backward_gb_seq_shard_off=f"{_saved_bytes_whole_stream(arch, shape) / 1e9:.3f}",
                  model_axis_gb=json.dumps({k: round(v / 1e9, 2) for k, v in model.items()}).replace(" ", ""),
                  whole_stream=json.dumps(DRYRUN_WHOLE_STREAM).replace(" ", ""),
+                 eager_adamw=json.dumps(DRYRUN_EAGER_ADAMW).replace(" ", ""),
                  note="dry_run_counts_on_meta_not_chip_measurements")
         cost_ = rec.get("cost_analysis", {})
         if not (rec.get("ok") and cost_.get("flops", 0) > 0 and cost_.get("bytes_accessed", 0) > 0):
@@ -3482,7 +3896,8 @@ def kernels_line(recs, counts, replayed, by_path=None):
     qwen2.5-32b, chameleon-34b and kimi-k2, each counted from 0 just
     before it), the codec's entry points over the
     serve blocks and the latent slab for quantize and dequantize,
-    rwkv6-1.6b for wkv, zamba2-1.2b for ssd.  ``replayed`` maps each
+    rwkv6-1.6b for wkv, zamba2-1.2b for ssd, phase train's main path for
+    the fused AdamW's sq_norm, adamw_update and factored_stats.  ``replayed`` maps each
     kernel to the launches the same paths' CUDA-graph replays ran, read
     from device traces; ``by_path`` to each path's share of both."""
     entries = []
@@ -3499,6 +3914,10 @@ def kernels_line(recs, counts, replayed, by_path=None):
          "src/repro/kernels/rwkv6/rwkv6.py:84", f"atol=rtol={WKV_TOL}"),
         ("ssd", "src/repro_torch/kernels/mamba2/csrc/mamba2.cu",
          "src/repro/kernels/mamba2/mamba2.py:70", f"atol=rtol={SSD_TOL}"),
+        ("sq_norm", ADAMW_SOURCE, "src/repro/training/optim.py:99", f"rtol{ADAMW_NORM_RTOL}"),
+        ("adamw_update", ADAMW_SOURCE, "src/repro/training/optim.py:109",
+         f"state_rtol{OPT_STATE_RTOL},p_and_m_within_one_bf16_step"),
+        ("factored_stats", ADAMW_SOURCE, "src/repro/training/optim.py:117", f"rtol{OPT_STATE_RTOL}"),
     ):
         rec = recs[name]
         entry = {
@@ -3511,8 +3930,17 @@ def kernels_line(recs, counts, replayed, by_path=None):
             "max_abs_err": rec["max_abs_err"], "tol": tol,
             "ms": rec["ms"], "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
-            "large": rec["large"],
         }
+        for extra in ("large", "shape", "library", "paths"):
+            if extra in rec:
+                entry[extra] = rec[extra]
+        if name in ADAMW_KERNELS:
+            entry["replaces_note"] = ("no pallas_call: the reference's AdamW is plain jnp that XLA fuses inside its "
+                                      "jitted train step")
+            entry["launches_from"] = ("the wrappers' counter over phase train's main path (a): eager steps, the "
+                                      "captured step's warm calls and its capture")
+            entry["replayed_launches_from"] = ("torch.profiler trace of one replay of the captured train step, times "
+                                               "its replays")
         if by_path and name in by_path:
             entry["by_path"] = by_path[name]
         for extra in ("olmoe", "minicpm3", "zamba2", "glm4", "chameleon", "kimi", "slab", "large_minicpm3",
@@ -3521,9 +3949,10 @@ def kernels_line(recs, counts, replayed, by_path=None):
             if extra in rec:
                 entry[extra] = rec[extra]
         if entry["library_ms"] is None:
-            entry["library_note"] = ("no single PyTorch call computes the absmax and the quantize together"
-                                     if name == "quantize" else
-                                     "no single PyTorch call computes this scan")
+            entry["library_note"] = {"quantize": "no single PyTorch call computes the absmax and the quantize together",
+                                     "factored_stats": "no single PyTorch call computes the row and column means "
+                                                       "of g^2 and folds them into vr and vc"
+                                     }.get(name, "no single PyTorch call computes this scan")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -3561,7 +3990,8 @@ def main() -> int:
     _, _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
     phase_model("whisper", SEED)
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
-    step_ms = phase_train()
+    adamw_recs = phase_adamw()
+    step_ms, train_graph, train_counts = phase_train()
     phase_distributed(step_ms)
     phase_tensor_parallel()
     phase_dryrun(step_ms, serve_times, cells)
@@ -3579,7 +4009,11 @@ def main() -> int:
                 "paged_decode": sum(r["paged_decode"] for _, _, r in serve_paths),
                 "quantize": 0, "dequantize": 0,  # the codec's entry points run eagerly
                 "wkv": rwkv6_replayed["wkv"], "ssd": zamba2_replayed["ssd"]}
-    recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd}
+    # the fused AdamW's: phase train's main path
+    path_counts.update({k: train_counts[k] for k in ADAMW_KERNELS})
+    replayed.update({k: train_graph["per_replay"].get(k, 0) * train_graph["replays"] for k in ADAMW_KERNELS})
+    recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd,
+            **adamw_recs}
     print(json.dumps(kernels_line(recs, path_counts, replayed, by_path)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.1f} card={smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels of the port, one package each:
+"""Hand-written Hopper kernels of the port, one package each (the six
+Pallas kernels' counterparts, and ``adamw``, the optimizer step that the
+reference leaves to XLA's fusion):
 ``<name>/csrc/<name>.cu`` (the kernel, plain C interface), ``<name>/ops.py``
 (the wrapper and its launch counter) and ``<name>/ref.py`` (the plain
 PyTorch version).  ``include/kernel_common.cuh`` holds what the sources
@@ -10,6 +12,7 @@ from __future__ import annotations
 import re
 from typing import Dict, Iterable, Tuple
 
+from .adamw import ops as _adamw_ops
 from .decode_attention import ops as _decode_ops
 from .flash_attention import ops as _flash_ops
 from .kv_codec import ops as _codec_ops
@@ -24,6 +27,9 @@ _COUNTED = {
     "ssd": (_ssd_ops, "launches"),
     "quantize": (_codec_ops, "quantize_launches"),
     "dequantize": (_codec_ops, "dequantize_launches"),
+    "sq_norm": (_adamw_ops, "sq_norm_launches"),
+    "adamw_update": (_adamw_ops, "update_launches"),
+    "factored_stats": (_adamw_ops, "factored_launches"),
 }
 
 # kernel name -> the __global__ functions of its source of which each
@@ -36,6 +42,9 @@ TRACE_SYMBOLS = {
     "ssd": ("ssd_local_kernel",),
     "quantize": ("quantize_one_pass_kernel", "quantize_absmax_kernel"),
     "dequantize": ("dequantize_kernel",),
+    "sq_norm": ("sq_norm_partial_kernel",),
+    "adamw_update": ("adamw_update_kernel",),
+    "factored_stats": ("factored_partial_kernel",),
 }
 _SYMBOL = {kernel: re.compile(r"\b(" + "|".join(symbols) + r")\b") for kernel, symbols in TRACE_SYMBOLS.items()}
 

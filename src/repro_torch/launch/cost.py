@@ -27,6 +27,12 @@ Conventions, per op:
               (``index_copy_``, ``index_put_``, ``scatter_``...) the rows
               it reads and writes; ``copy_`` its source and destination
               once each; views and metadata ops nothing.
+  fused ops   the port's own (``repro_torch::*``, the fused AdamW of
+              ``kernels/adamw``), which write their arguments in place and
+              return nothing: each tensor argument read once, each argument
+              the op's schema marks written written once, the traffic of
+              its kernel; 1 FLOP per element of its first argument, as one
+              elementwise op.
   collectives by kind (all-reduce, all-gather, reduce-scatter,
               all-to-all, send/recv, broadcast), their operand bytes and
               counts, by the mesh axis of their group (``axes``), both
@@ -202,6 +208,21 @@ class CostCounter(TorchDispatchMode):
         if len({r // self.cards_per_host for r in ranks}) > 1:
             tot.coll_cross_host_bytes += size
 
+    # --------------------------------------------------------- fused ops
+    def _fused(self, func, args, kwargs):
+        """A fused op of the port: it returns nothing and writes the
+        arguments its schema marks written."""
+        out = func(*args, **kwargs)
+        values = [args[i] if i < len(args) else kwargs.get(a.name) for i, a in enumerate(func._schema.arguments)]
+        written = [v for v, a in zip(values, func._schema.arguments)
+                   if a.alias_info is not None and a.alias_info.is_write]
+        ins = _tensors(values)
+        tot = self.totals
+        tot.ops += 1
+        tot.bytes += sum(nbytes(t) for t in ins) + sum(nbytes(t) for t in _tensors(written))
+        tot.flops += ins[0].numel() if ins else 0
+        return out
+
     # --------------------------------------------------------------- ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -210,6 +231,8 @@ class CostCounter(TorchDispatchMode):
             if packet.__name__ in _COLLECTIVES:
                 self._collective(packet.__name__, args)
             return func(*args, **kwargs)
+        if func.namespace == "repro_torch":
+            return self._fused(func, args, kwargs)
         if packet not in flop_registry:
             # under inference mode a composite op (matmul, einsum, linear)
             # reaches the mode whole: count the ops it decomposes into, as
@@ -253,6 +276,7 @@ class CostCounter(TorchDispatchMode):
                 tot.flops += sum(t.numel() for t in outs)
         self._track(outs, arg_keys, func)
         return out
+
 
 
 def axes_of(mesh) -> Dict[str, str]:

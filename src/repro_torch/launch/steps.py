@@ -11,8 +11,9 @@ The sharding helpers (``fsdp_axes_for``, ``train_abstract_inputs``,
 ``*_shardings``) resolve each step's input and output shardings from
 ``distributed.sharding`` for any mesh, a ``DeviceMesh`` or an
 ``AbstractMesh``; they read the meta-tensor specs of ``models.api`` and
-``training.optim``.  The train step stays eager (its device is busy; there
-is little host time for a graph to save).
+``training.optim``.  ``build_train_step`` gives the train step captured
+at its first call on a CUDA device (``graphs.capture_at_first_call``), as
+the reference's lowers a jitted one; under a mesh it stays eager.
 
 ``lower_cell`` is the reference's dry-run lowering: where the reference
 lowers a step under its shardings for a mesh of host devices, the port
@@ -37,6 +38,7 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P, NamedSharding
 from ..graphs import CapturedStep, capture  # noqa: F401  (the jit counterpart, with the builders)
+from ..graphs import capture_at_first_call
 from ..models import api
 from ..models.common import splits_sequence, tensor_parallel, tree_leaves
 from ..training import loop, optim
@@ -75,11 +77,16 @@ def _train_cfg(cfg: ModelConfig) -> ModelConfig:
 def build_train_step(cfg: ModelConfig, ocfg: Optional[optim.OptimizerConfig] = None, mesh=None):
     """-> (train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), ocfg): ``training/loop.make_train_step`` on the remat config,
-    eager, updating params and state in place; data- and tensor-parallel
-    under ``mesh`` (a ``DeviceMesh``), ``batch`` then the global batch."""
+    updating params and state in place.  Without ``mesh`` it is captured
+    at its first call on CUDA tensors, params and state held
+    (``graphs.capture_at_first_call``: its first two calls the warm calls,
+    then one graph replayed), and runs as it is on the CPU and ``meta``;
+    under ``mesh`` (a ``DeviceMesh``) it is eager, data- and
+    tensor-parallel, ``batch`` the global batch."""
     cfg = _train_cfg(cfg)
     ocfg = ocfg or opt_config_for(cfg)
-    return loop.make_train_step(cfg, ocfg, mesh), ocfg
+    step = loop.make_train_step(cfg, ocfg, mesh)
+    return (step if mesh is not None else capture_at_first_call(step, held=(0, 1))), ocfg
 
 
 def train_abstract_inputs(cfg: ModelConfig, shape: ShapeConfig, ocfg: optim.OptimizerConfig):

@@ -8,9 +8,13 @@ Fault-tolerance contract (the reference's):
   * a ``crash_after`` hook lets tests kill the loop mid-run and assert the
     restart reproduces the uninterrupted loss trajectory.
 
-The step is eager: forward and backward through the kernels' plain
-versions (the kernels have no backward, and the reference trains through
-its plain attention and scans as well), then the in-place AdamW update.
+The step: forward and backward through the kernels' plain versions (the
+kernels have no backward, and the reference trains through its plain
+attention and scans as well), then the in-place AdamW update, one fused
+kernel a leaf (``kernels/adamw``).  The reference jits the step; without
+a mesh, ``train`` captures it on a CUDA device as one CUDA graph
+(``graphs.capture``, its first two steps the warm calls), and every later
+step replays it.
 
 Under a mesh (a ``DeviceMesh`` over (pod,) data and model) the step
 computes the reference's step under ``with mesh``, and every rank holds
@@ -30,6 +34,9 @@ the whole parameters and optimizer state, as the reference's launcher
     mean over the batch axes the gradients that the splits leave partial
     (``sharding.model_partial``) are summed over ``model``
     (``reduce_grads``).
+The step stays eager under a mesh: its collectives run over gloo ranks
+(the multi-rank paths; NCCL takes one rank a card), which a CUDA graph
+cannot hold.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from .. import graphs
 from ..distributed import sharding as shd
 from ..models import api
 from ..models.common import MODEL_AXIS, resolve_device, tensor_parallel, tree_flatten, tree_unflatten
@@ -152,7 +160,10 @@ def make_train_step(cfg, ocfg: optim.OptimizerConfig, mesh=None):
     AdamW step on the gradients of ``make_grad_fn(cfg, mesh)``, updating
     ``params`` and ``opt_state`` in place.  ``batch`` holds tensors on the
     parameters' device; the metrics ("loss", "ce", "aux", "grad_norm",
-    "lr") are 0-d tensors there.  Under ``mesh`` the step is data- and
+    "lr") are 0-d tensors there.  Every tensor of ``params`` and
+    ``opt_state`` is updated in place and nothing reads the host, so on a
+    CUDA device the step captures as one CUDA graph (``graphs.capture``
+    with ``held=(0, 1)``).  Under ``mesh`` the step is data- and
     tensor-parallel (see the module's docstring): ``batch`` is the global
     batch, and every rank ends the step with the same parameters."""
     grad_fn = make_grad_fn(cfg, mesh)
@@ -193,7 +204,13 @@ def train(
     resumed_from, crashed}.  ``shardings`` (a tree like {"params",
     "opt"} of ``NamedSharding``) places a restored checkpoint, as the
     reference's restore does; ``mesh`` makes the step data- and
-    tensor-parallel (see the module's docstring).  Every rank of the mesh calls ``train``."""
+    tensor-parallel (see the module's docstring).  Every rank of the mesh calls ``train``.
+
+    Without a mesh the step is captured (``graphs.capture(...,
+    warm_on_calls=True)``) after the restore, holding the parameters and
+    optimizer state: on a CUDA device the loop's first two steps run
+    eagerly as the warm calls, each on its own batch, and every later step
+    replays the graph; on the CPU every step runs the step itself."""
     dev = resolve_device(device)
     ocfg = ocfg or default_optimizer(tcfg.steps)
     data = SyntheticLM(
@@ -216,9 +233,14 @@ def train(
         opt_state = optim.init_state(ocfg, params)
         step0 = 0
 
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+
+    if mesh is None:
+        step_fn = graphs.capture(step_fn, params, opt_state, batch_at(step0), held=(0, 1), warm_on_calls=True)
     losses: List[float] = []
     for step in range(step0, tcfg.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
+        batch = batch_at(step)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (step + 1) % tcfg.log_every == 0 or step == step0:
             log(f"[train] step {step + 1} loss {float(metrics['loss']):.4f} "

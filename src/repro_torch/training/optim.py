@@ -8,11 +8,14 @@ Two options (the ones the 1T-param kimi-k2 config uses):
   * ``factored_second_moment`` — Adafactor-style row/col factorization of v
     for >=2-D parameters: O(n+m) state instead of O(n*m).
 
-Every computation is in f32 tensors in the reference's order of
-operations.  The reference is functional; here ``params``, ``m`` and ``v``
-are updated in place, leaf by leaf, under ``torch.no_grad()``, so a second
-copy of parameters and state is never alive and the f32 temporaries stay
-bounded by the largest leaf.
+Every element's computation is in f32 in the reference's order of
+operations, fused into one op a leaf (``kernels/adamw``: a hand-written
+CUDA kernel on the card, its plain version on the CPU; the reference's
+XLA fuses the same step).  The reference is functional; here ``params``,
+``m``, ``v`` and ``step`` are updated in place, leaf by leaf, under
+``torch.no_grad()``, so a second copy of parameters and state is never
+alive, no f32 copy of a leaf is made on the card, and a captured step
+replays.
 
 Quirks kept from the reference: clipped gradients are rounded back to the
 gradient's dtype before the update; bias corrections are ``b**t`` with
@@ -30,6 +33,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..kernels import adamw
+from ..kernels.adamw.ref import clipped
 from ..models.common import tree_flatten, tree_unflatten
 
 F32 = torch.float32
@@ -98,75 +103,34 @@ def state_specs(cfg: OptimizerConfig, param_specs) -> Dict:
 
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in tree_flatten(tree)[0]))
+    """sqrt of the sum of every leaf's squares: each leaf's sum in f64
+    (``kernels.adamw.sq_norms``, one op a leaf), their sum rounded once to
+    f32."""
+    return torch.sqrt(adamw.sq_norms(tree_flatten(tree)[0]).sum().to(F32))
 
 
 def _clip_scale(nrm, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(nrm, min=1e-9), max=1.0)
 
 
-def _clipped(g, scale):
-    """The reference rounds the clipped gradient back to the gradient's
-    dtype (bf16 for bf16 parameters) before the update uses it."""
-    return (g.to(F32) * scale).to(g.dtype)
-
-
 def clip_by_global_norm(grads, max_norm: float):
     nrm = global_norm(grads)
     scale = _clip_scale(nrm, max_norm)
-    return _map(lambda g: _clipped(g, scale), grads), nrm
-
-
-@torch.no_grad()
-def _update_leaf(cfg: OptimizerConfig, lr, t, p, g, m, v):
-    """One AdamW step of one leaf, in place: ``p``, ``m`` and the tensors
-    of ``v`` are overwritten (m rounded to its dtype after the f32 math).
-    Returns (p, m, v)."""
-    b1, b2 = cfg.betas
-    gf = g.to(F32)
-    m_new = m.to(F32) * b1
-    m_new += gf * (1 - b1)
-    if "v" in v:
-        g2 = gf * (1 - b2)
-        g2 *= gf
-        v["v"].mul_(b2).add_(g2)
-        del g2
-        v_hat = v["v"] / (1 - b2**t)
-    else:
-        g2 = gf * gf
-        vr, vc = v["vr"], v["vc"]
-        vr.mul_(b2).add_(g2.sum(dim=-1) / g2.shape[-1] * (1 - b2))
-        vc.mul_(b2).add_(g2.sum(dim=-2) / g2.shape[-2] * (1 - b2))
-        del g2
-        # rank-1 reconstruction: vr ⊗ vc / mean(vc)
-        denom = torch.clamp(vc.sum(dim=-1, keepdim=True) / vc.shape[-1], min=1e-30)
-        v_hat = vr[..., None] * vc[..., None, :]
-        v_hat /= denom[..., None]
-        v_hat /= 1 - b2**t
-    del gf
-    upd = m_new / (1 - b1**t)
-    m.copy_(m_new)
-    del m_new
-    v_hat.sqrt_().add_(cfg.eps)
-    upd /= v_hat
-    del v_hat
-    if p.ndim >= 2:  # decoupled weight decay on matrices only
-        upd += cfg.weight_decay * p.to(F32)
-    upd *= lr
-    p.copy_(p.to(F32) - upd)
-    return p, m, v
+    return _map(lambda g: clipped(g, scale), grads), nrm
 
 
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params, grads, state):
     """One AdamW step, in place on ``params`` and ``state``.  Returns
-    (params, state, {"grad_norm", "lr"}) with the same objects."""
-    gnorm = global_norm(grads)
-    scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state["step"] + 1
-    t = step.to(F32)
-    lr = lr_schedule(cfg, step)
+    (params, state, {"grad_norm", "lr"}) with the same objects.
 
+    Every tensor of ``state`` is updated in place, ``state["step"]``
+    included, and the clip scale, lr and bias corrections are computed on
+    the step's device from it, so a step captured as a CUDA graph replays
+    correctly.  Per leaf: one ``sq_norm`` for the global norm, then (for a
+    factored v) one ``factored_stats`` and one ``adamw_update``: the
+    kernels of ``kernels.adamw`` on a CUDA device, their plain versions
+    on the CPU."""
     flat_p = tree_flatten(params)[0]
     flat_g = tree_flatten(grads)[0]
     flat_m = tree_flatten(state["m"])[0]
@@ -174,8 +138,19 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     flat_v = tree_flatten(state["v"], is_leaf=lambda x: isinstance(x, dict) and ("v" in x or "vr" in x))[0]
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and optimizer state have different trees")
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.grad_clip)
+    step = state["step"]
+    step.add_(1)
+    t = step.to(F32)
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.betas
+    scalars = torch.stack([scale, lr, 1 - b1**t, 1 - b2**t])
+    hyper = dict(b1=b1, b2=b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        _update_leaf(cfg, lr, t, p, _clipped(g, scale), m, v)
-    state["step"] = step
+        if "v" in v:
+            adamw.adamw_update(p, g, m, v["v"], scalars, **hyper)
+        else:
+            denom = adamw.factored_stats(g, v["vr"], v["vc"], scalars, b2)
+            adamw.adamw_update(p, g, m, None, scalars, vr=v["vr"], vc=v["vc"], denom=denom, **hyper)
     return params, state, {"grad_norm": gnorm, "lr": lr}
-

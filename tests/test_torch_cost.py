@@ -205,3 +205,34 @@ def test_saved_bytes_are_what_the_backward_keeps():
     assert plain.saved_bytes == 3 * act  # h for the matmul, both tanh outputs
     assert remat.saved_bytes == act  # the checkpoint's input
     assert plain.peak_op and plain.peak_op.startswith("aten.")
+
+
+
+@pytest.mark.parametrize("moment_dtype,factored", [("float32", False), ("bfloat16", False), ("bfloat16", True)],
+                         ids=["f32-moments", "bf16-m", "bf16-m-factored-v"])
+def test_the_fused_adamw_update_reads_and_writes_each_leaf_once(moment_dtype, factored):
+    """The optimizer on meta, as the card runs it (``kernels/adamw``): a
+    leaf's ``adamw_update`` is one op that reads p, g, m and v (or vr, vc
+    and the divisor) and the step's 4 scalars once and writes p, m and v
+    once; the whole step allocates no f32 temporary of a leaf (its
+    largest storages are its few scalars), so a dry run's peak sees none."""
+    from repro_torch.kernels import adamw
+    from repro_torch.training import optim
+
+    ocfg = optim.OptimizerConfig(moment_dtype=moment_dtype, factored_second_moment=factored)
+    L, R, C = 4, 64, 32
+    n = L * R * C
+    p, g, scalars = _t(L, R, C, dtype=BF16), _t(L, R, C, dtype=BF16), _t(4)
+    state = optim.init_state(ocfg, {"w": p})
+    m, v, mb = state["m"]["w"], state["v"]["w"], state["m"]["w"].element_size()
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    if factored:
+        denom = adamw.factored_stats(g, v["vr"], v["vc"], scalars, 0.95)
+        _, t = count(adamw.adamw_update, p, g, m, None, scalars, vr=v["vr"], vc=v["vc"], denom=denom, **hyper)
+        reads, writes = (2 + 2 + mb) * n + 4 * (L * R + L * C + L + 4), (2 + mb) * n
+    else:
+        _, t = count(adamw.adamw_update, p, g, m, v["v"], scalars, **hyper)
+        reads, writes = (2 + 2 + mb + 4) * n + 4 * 4, (2 + mb + 4) * n
+    assert (t.ops, t.bytes, t.flops, t.peak_live_bytes) == (1, reads + writes, n, 0)
+    _, t = count(optim.apply_updates, ocfg, {"w": p}, {"w": g}, state)
+    assert 0 < t.peak_live_bytes < 64

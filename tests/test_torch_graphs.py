@@ -18,7 +18,9 @@ KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels
 SOURCES = {"flash": "flash_attention/csrc/flash_attention.cu",
            "paged_decode": "decode_attention/csrc/decode_attention.cu",
            "wkv": "rwkv6/csrc/rwkv6.cu", "ssd": "mamba2/csrc/mamba2.cu",
-           "quantize": "kv_codec/csrc/kv_codec.cu", "dequantize": "kv_codec/csrc/kv_codec.cu"}
+           "quantize": "kv_codec/csrc/kv_codec.cu", "dequantize": "kv_codec/csrc/kv_codec.cu",
+           "sq_norm": "adamw/csrc/adamw.cu", "adamw_update": "adamw/csrc/adamw.cu",
+           "factored_stats": "adamw/csrc/adamw.cu"}
 
 
 def _globals(src: str):
@@ -53,9 +55,15 @@ def test_traced_launch_counts_reads_profiler_names():
             ("void dequantize_kernel<float, 4>(signed char const*)", 3),
             ("void quantize_absmax_kernel<__nv_bfloat16, 8>(float*)", 1),
             ("nvjet_tst_192x128_64x5_4x1_v_bz_coopB_NNT", 80),
-            ("Memcpy DtoD (Device -> Device)", 81)]
+            ("Memcpy DtoD (Device -> Device)", 81),
+            ("void (anonymous namespace)::sq_norm_partial_kernel<__nv_bfloat16, true>(__nv_bfloat16 const*)", 14),
+            ("(anonymous namespace)::sq_norm_join_kernel(double const*, int, double*, long)", 14),
+            ("void (anonymous namespace)::adamw_update_kernel<__nv_bfloat16, float, false, true>(float*)", 14),
+            ("void (anonymous namespace)::factored_partial_kernel<__nv_bfloat16, true>(double*)", 13),
+            ("(anonymous namespace)::factored_finish_kernel(double const*, double const*)", 13)]
     assert traced_launch_counts(runs) == {"flash": 42, "paged_decode": 40, "wkv": 0, "ssd": 38,
-                                          "quantize": 1, "dequantize": 3}
+                                          "quantize": 1, "dequantize": 3,
+                                          "sq_norm": 14, "adamw_update": 14, "factored_stats": 13}
 
 
 def test_capture_lives_below_serving_and_launch():

@@ -230,7 +230,7 @@ def test_no_module_of_the_port_names_jax_or_the_reference():
 
 
 def test_kernel_build_command_targets_hopper():
-    assert _build.kernel_names() == ["decode_attention", "flash_attention", "kv_codec", "mamba2", "rwkv6"]
+    assert _build.kernel_names() == ["adamw", "decode_attention", "flash_attention", "kv_codec", "mamba2", "rwkv6"]
     for name in _build.kernel_names():
         assert _build.source_path(name).exists()
         lib = _build.library_path(name)
@@ -268,6 +268,7 @@ def test_kernel_build_raises_without_a_toolkit():
 def test_launch_counters_count_only_kernel_launches():
     import torch
 
+    from repro_torch.kernels.adamw import adamw_update, factored_stats, sq_norms
     from repro_torch.kernels.decode_attention import paged_decode
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kv_codec import dequantize, quantize
@@ -283,5 +284,11 @@ def test_launch_counters_count_only_kernel_launches():
     ssd(q, torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.ones(1, 4, 2), torch.zeros(1, 4, 2),
         torch.zeros(1, 2, 16, 8))
     dequantize(*quantize(q))
+    scalars = torch.tensor([1.0, 1e-3, 0.1, 0.05])
+    p, m, vr, vc = torch.zeros(2, 8), torch.zeros(2, 8), torch.zeros(2), torch.zeros(8)
+    sq_norms([p, q])
+    adamw_update(p, p.clone(), m, None, scalars, vr=vr, vc=vc, denom=factored_stats(p, vr, vc, scalars, 0.95),
+                 b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
     # CPU tensors take the plain versions
-    assert launch_counts() == {"flash": 0, "paged_decode": 0, "wkv": 0, "ssd": 0, "quantize": 0, "dequantize": 0}
+    assert launch_counts() == {"flash": 0, "paged_decode": 0, "wkv": 0, "ssd": 0, "quantize": 0, "dequantize": 0,
+                               "sq_norm": 0, "adamw_update": 0, "factored_stats": 0}
