@@ -30,7 +30,11 @@ Phases, in order, one line each:
   4. paged_decode  paged decode kernel vs its plain version at the serve path's
                    shape, zamba2's, olmoe's, glm4-9b's (G 16), chameleon-34b's
                    (G 8) and kimi-k2's (G 8, D 112; kv_len 129..136, bf16
-                   and f32), a batch
+                   and f32); each rank's KV-head view of a qwen3-14b and
+                   a glm4-9b cache at (data, model) = (1, 2), as phase
+                   tensor-parallel's part (d) reads it (kv_len 129..136,
+                   bf16 and f32, also equal bit for bit to the kernel on
+                   the view's contiguous copy); a batch
                    of 32 with mixed kv_len up to 4096 over shuffled tables and
                    one kv_len = 0 row, one 4096-token sequence (and one at
                    kimi-k2's shape, bf16 and f32), whisper-small's
@@ -216,7 +220,7 @@ Phases, in order, one line each:
                    gpipe at one stage over NCCL, equal to the stage
                    function bit for bit; in a subprocess with deterministic
                    algorithms, the non-distributed loop and launch/train.main
-                   --data 1 on full-width qwen3-14b (8 layers, 2 steps),
+                   --data 1 on full-width qwen3-14b (2 layers, 2 steps),
                    losses bit for bit, and the second run's checkpoint
                    restored under the (1, 1) mesh's shardings, each leaf
                    bit for bit the file's; the group destroyed at the end
@@ -247,9 +251,27 @@ Phases, in order, one line each:
                    on the same two ranks in bf16 (seq_shard off, as the
                    reference's launcher runs), its 2 losses against the
                    --model 1 run's in a fresh process (rtol 1e-3,
-                   TP_LAUNCH_RTOL's reason).  Gloo stages every
-                   collective through host memory, so its times say
-                   nothing of NVLink
+                   TP_LAUNCH_RTOL's reason); (d) on the same ranks, the
+                   decode step under model through the port's kernels:
+                   qwen3-14b (split over KV heads: each rank's cache a
+                   strided view of 4 of its 8 KV heads) and glm4-9b
+                   (split over query groups: 16 of 32 heads over both KV
+                   heads) at full width, 2 layers each, launch/steps'
+                   build_prefill_step (128 tokens) and build_decode_step
+                   (8 greedy tokens, pos a device scalar), eager, in bf16
+                   (the main path: launch counters reset just before and
+                   read just after, flash 2 a prefill and paged decode 2
+                   a token per rank, gated exact), then the plain path
+                   teacher-forced on its tokens, and both greedy on an f32
+                   copy; gated against one process's kernel path (bf16
+                   teacher-forced on the ranks' tokens: logits within
+                   LOGIT_REL_TOL of max |logit|; f32: tokens equal, logits
+                   within TP_DECODE_F32_TOL) and the plain path at the
+                   same tolerances, and each rank's KV heads of every cache
+                   leaf against one process's; a rank's prefill ms and
+                   decode ms a token; (d)'s failures raise after (a)-(c)'s
+                   gates.  Gloo stages every collective through host
+                   memory, so its times say nothing of NVLink
  18. dryrun        the dry run (launch.steps.lower_cell: each step traced on
                    meta tensors in this process under the cost counter,
                    launch/cost.py; no device) beside this run's own
@@ -287,10 +309,12 @@ Phases, in order, one line each:
                    the wrappers' count over the main paths' runs (eager
                    launches and launches recorded into graphs at capture;
                    flash and paged decode summed over the five serve paths,
-                   the cluster's among them, `by_path` each one's share;
+                   the cluster's among them, and phase tensor-parallel's
+                   part (d) on both ranks, `by_path` each one's share;
                    the fused AdamW's over phase train's main path),
                    `replayed_launches` the launches the main paths' graph
-                   replays ran on the card, from the device trace
+                   replays ran on the card, from the device trace (part
+                   (d) runs eagerly: its `by_path` entry has none)
 
 Every phase runs on every call.  Any failed phase raises and the exit code
 is nonzero.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the rest
@@ -608,6 +632,57 @@ def _dense_sdpa_inputs(q, kp, vp, tables, lens):
     return q[:, :, None, :], kd, vd, mask
 
 
+def head_view_cases(rec, rand, page: int, Smax: int) -> None:
+    """The kernel on each rank's KV-head view of a whole cache, as phase
+    tensor-parallel's part (d) hands it over at (data, model) = (1, 2):
+    qwen3-14b's split over KV heads (4 of 8 a rank, slots the whole cache's
+    8 x 128 elements apart, rank 1's view 4 heads in) and glm4-9b's over
+    query groups (both KV heads, 16 of 32 query heads a rank).  At kv_len
+    129..136, bf16 and f32: within BF16_LIMIT / F32_TOL of the plain version
+    on the view, and equal bit for bit to the kernel on the view's
+    contiguous copy, so a slot, page or head offset read wrong fails."""
+    import torch
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import paged_decode, paged_decode_ref
+    from repro_torch.models import layers
+
+    NB = Smax // page
+    tables = torch.arange(NB, dtype=torch.int32, device="cuda").view(1, NB)
+    for arch in TP_DECODE_ARCHS:
+        cfg = get_config(arch)
+        KVH, D = cfg.n_kv_heads, cfg.d_head
+        kc, vc = rand(1, Smax, KVH, D), rand(1, Smax, KVH, D)
+        for rank in range(TP_RANKS):
+            kv, gs = layers.gqa_heads(cfg, SimpleNamespace(model_size=TP_RANKS, model_rank=rank))
+            kvh, H = kv[1] - kv[0], (kv[1] - kv[0]) * (gs[1] - gs[0])
+            q = rand(1, H, D)
+            errs = {}
+            for dtype in (torch.bfloat16, torch.float32):
+                kp = layers.kv_head_view(kc.to(dtype), kv).view(NB, page, kvh, D)
+                vp = layers.kv_head_view(vc.to(dtype), kv).view(NB, page, kvh, D)
+                kcp, vcp, qd = kp.contiguous(), vp.contiguous(), q.to(dtype)
+                worst = (0.0, 0.0)
+                for n in range(129, 137):
+                    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+                    out = paged_decode(qd, kp, vp, tables, lens)
+                    ref = paged_decode_ref(qd, kp, vp, tables, lens)
+                    name = f"paged_decode {arch} rank {rank} head view {dtype} kv_len {n}"
+                    got = (assert_bf16(name, out, ref) if dtype == torch.bfloat16
+                           else assert_close(name, out, ref, F32_TOL))
+                    if not torch.equal(out, paged_decode(qd, kcp, vcp, tables, lens)):
+                        raise AssertionError(f"{name}: the view's result differs from its contiguous copy's")
+                    worst = max(worst, got)
+                errs[dtype] = worst
+            rec["max_abs_err"] = max(rec["max_abs_err"], errs[torch.bfloat16][0])
+            line("paged_decode", case=f"head_view {arch} rank{rank} B1 H{H} KVH{kvh} of {KVH} D{D} page16 "
+                 f"kv_len129..136", strides=tuple(kp.stride()), contiguous=kp.is_contiguous(),
+                 max_abs_err=f"{errs[torch.bfloat16][0]:.3e}", tol=BF16_LIMIT,
+                 of_limit=f"{errs[torch.bfloat16][1]:.3f}", f32_err=f"{errs[torch.float32][0]:.3e}",
+                 f32_tol=F32_TOL, equal_to_contiguous_copy=True)
+
+
 def phase_paged_decode():
     import torch
     import torch.nn.functional as F
@@ -650,6 +725,7 @@ def phase_paged_decode():
          kernel_ms=f"{rec['ms']:.5f}", plain_ms=f"{rec['plain_ms']:.5f}",
          library_ms=f"{rec['library_ms']:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
          bound_by=rec["bound_by"])
+    head_view_cases(rec, rand, page, Smax)
 
     # zamba2's shared attention block (H 32, KVH 32, G 1, D 64), olmoe's
     # attention (H 16, KVH 16, G 1, D 128), glm4-9b's (H 32, KVH 2: G 16
@@ -1912,6 +1988,44 @@ def latent_slab(cfg, params, toks):
     return slab.permute(1, 0, 2).reshape(16, -1).contiguous()
 
 
+def wkv_layer_inputs(cfg, params, prompt, fed):
+    """The inputs of each WKV call of rwkv6's kernel path, teacher-forced on
+    ``fed`` (eager: the prefill's one call a layer; decode steps run no
+    scan): per layer (r, k, v, w, u, state, chunk) as the model hands them
+    to the scan, which runs through the kernel here as on the main path."""
+    from repro_torch.kernels.rwkv6 import wkv_model
+    from repro_torch.launch.serve_e2e import greedy_decode
+
+    records = []
+
+    def recording(r, k, v, w, u, state, chunk):
+        records.append((r.clone(), k.clone(), v.clone(), w.clone(), u.clone(), state.clone(), chunk))
+        return wkv_model(r, k, v, w, u, state, chunk=chunk)
+
+    greedy_decode(cfg, params, prompt, len(fed), "cuda", plain_kernels=recording, inputs=fed, graphs=False)
+    return records
+
+
+def wkv_layer_gate(records, scan, tol: float = WKV_TOL):
+    """Each recorded layer's scan through ``scan(r, k, v, w, u, state,
+    chunk)`` against its plain version (``wkv_chunked_plain``) on the same
+    inputs: y and the final state within atol = rtol = ``tol``, phase wkv's
+    tolerance.  -> (worst max |err|, worst share of the limit, where);
+    raises AssertionError at the first layer past the limit.  rwkv6's bf16
+    gate: it reads the kernel's own error, where its end-to-end logits read
+    rounding (PERF.md, Findings)."""
+    from repro_torch.kernels.rwkv6 import wkv_chunked_plain
+
+    worst = (0.0, 0.0, None)
+    for i, (r, k, v, w, u, state, chunk) in enumerate(records):
+        for what, o, want in zip(("y", "state"), scan(r, k, v, w, u, state, chunk),
+                                 wkv_chunked_plain(r, k, v, w, u, state, chunk)):
+            err, share = assert_close(f"rwkv6 layer {i} WKV {what}", o, want, tol)
+            if share >= worst[1]:
+                worst = (err, share, f"layer{i}_{what}")
+    return worst
+
+
 def phase_model(phase: str, seed: int, capture=None):
     """A full-width model from ``seed``: greedy decode through the kernels,
     held against the plain versions (in bf16 and on an f32 copy of the
@@ -1971,7 +2085,8 @@ def phase_model(phase: str, seed: int, capture=None):
         raise AssertionError(f"{phase}: non-finite decode logits")
 
     # The plain versions on the same inputs, teacher-forced.  In bf16, the
-    # models' own dtype, the logits are gated at LOGIT_REL_TOL; token
+    # models' own dtype, the logits are gated at LOGIT_REL_TOL (rwkv6's
+    # scan layer by layer instead, below); token
     # agreement and chaining are printed and not gated: at full width with
     # random weights a bf16 rounding that differs anywhere (a kernel's f32
     # sum order, or cuBLAS tiling another M) grows with depth, in the plain
@@ -1986,6 +2101,8 @@ def phase_model(phase: str, seed: int, capture=None):
     agree = sum(a == b for a, b in zip(plain_tokens, tokens)) / DECODE
     err, scale = max_err(logits, plain_logits), float(plain_logits.abs().max())
     what = "teacher-forced plain path, bf16 (agreement and chaining not gated)"
+    if cfg.family == "rwkv6":
+        what = "teacher-forced plain path, bf16 (printed, not gated: it reads rounding; the per-layer WKV gate below)"
     if moe:
         # routing decides the result: the gate reads the plain path run
         # on the kernel path's routing
@@ -2001,7 +2118,28 @@ def phase_model(phase: str, seed: int, capture=None):
          chaining_err_kernel_path=f"{spread['kernel']:.4e}", chaining_err_plain_path=f"{spread['plain']:.4e}")
     # every gate below is read before the phase fails, so one run shows them all
     failed = []
-    if err > LOGIT_REL_TOL * scale or not bool(torch.isfinite(plain_logits).all()):
+    if not bool(torch.isfinite(plain_logits).all()):
+        failed.append("the plain path's bf16 logits are not finite")
+    if cfg.family == "rwkv6":
+        # rwkv6's bf16 logits read rounding, not the kernel (3.9 % of max
+        # |logit| at seed 0 and 10.5 % at seed 1 with the kernel, 12.5 % and
+        # 11.4 % with an f64-exact scan: scripts/bf16_gate_sensitivity.py),
+        # so its bf16 gate holds each layer's scan against its plain version
+        from repro_torch.kernels.rwkv6 import wkv_model
+
+        records = wkv_layer_inputs(cfg, params, prompt, fed)
+        try:
+            lerr, lshare, where = wkv_layer_gate(records, lambda *a: wkv_model(*a[:6], chunk=a[6]))
+        except AssertionError as e:
+            failed.append(str(e))
+            lerr, lshare, where = float("nan"), float("nan"), "failed"
+        line(phase, check="per layer: the WKV kernel against its plain version on the layer's own inputs, "
+             "bf16 r/k/v, the kernel path teacher-forced", layers=len(records), max_abs_err=f"{lerr:.3e}",
+             of_limit=f"{lshare:.3f}", worst=where, tol=f"atol=rtol={WKV_TOL}")
+        if len(records) != cfg.n_layers:
+            failed.append(f"{len(records)} WKV calls in a prefill, not one a layer ({cfg.n_layers})")
+        del records
+    elif err > LOGIT_REL_TOL * scale:
         failed.append("the kernel path and the plain path disagree in bf16")
 
     params32 = f32_tree(params)
@@ -2942,6 +3080,10 @@ COMPRESS_SLACK = 2.0**-16
 COMPRESS_BYTES, REDUCE_BYTES = 11, 5  # per entry: g bf16 + e f32 in, q + e out; q in, the f32 mean out
 GLOO_RANKS = 4
 DIST_STEPS = 2
+# (d)'s loop and restore: qwen3-14b at full width, 2 of 40 layers, cut for
+# the script's time (a 22.2 GB checkpoint, written and read back on the
+# host); every leaf of it is restored bit for bit
+DIST_LAYERS = 2
 
 
 def _card_bytes(shardings, specs):
@@ -3135,12 +3277,12 @@ def dist_gloo_cuda():
 def _loop_child(root: str, result: str):
     """(d) In a fresh process (deterministic algorithms, set before cuBLAS
     starts): the non-distributed loop and the data-parallel loop through
-    launch/train.main --data 1 on qwen3-14b at full width, TRAIN_LAYERS
+    launch/train.main --data 1 on qwen3-14b at full width, DIST_LAYERS
     layers, DIST_STEPS steps; then the DP run's checkpoint restored under
     the (1, 1) mesh's shardings, each leaf against the file on the card.
     The non-distributed run is one step longer with DIST_STEPS's schedule
     and stops after DIST_STEPS (``crash_after``), so it writes none of
-    the 42 GB checkpoint the DP run writes."""
+    the checkpoint the DP run writes."""
     import dataclasses
 
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -3161,7 +3303,7 @@ def _loop_child(root: str, result: str):
 
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=DIST_LAYERS)
     out = {}
     t0 = time.perf_counter()
     plain = train(cfg, TrainConfig(steps=DIST_STEPS + 1, ckpt_every=DIST_STEPS + 1,
@@ -3172,7 +3314,7 @@ def _loop_child(root: str, result: str):
     out["plain_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dp_dir = os.path.join(root, "dp")
-    dp = launcher.main(["--full", "--layers", str(TRAIN_LAYERS), "--steps", str(DIST_STEPS), "--ckpt-every",
+    dp = launcher.main(["--full", "--layers", str(DIST_LAYERS), "--steps", str(DIST_STEPS), "--ckpt-every",
                         str(DIST_STEPS), "--ckpt-dir", dp_dir, "--data", "1", "--device", "cuda"])
     out["dp_s"] = time.perf_counter() - t0
     out["plain"], out["dp"] = plain["losses"], dp["losses"]
@@ -3242,7 +3384,7 @@ def dist_rest(mesh):
             out = json.load(f)
     r = out["restore"]
     line("distributed", part="d", check=f"launch/train.main --data 1 vs the non-distributed loop, qwen3-14b "
-         f"{TRAIN_LAYERS} of 40 layers at full width, {DIST_STEPS} steps, deterministic algorithms",
+         f"{DIST_LAYERS} of 40 layers at full width, {DIST_STEPS} steps, deterministic algorithms",
          losses_dp=",".join(f"{x:.6f}" for x in out["dp"]), losses_plain=",".join(f"{x:.6f}" for x in out["plain"]),
          bitwise=out["dp"] == out["plain"], dp_s=f"{out['dp_s']:.1f}", plain_s=f"{out['plain_s']:.1f}")
     line("distributed", part="d", check="the data-parallel run's checkpoint restored under the (1,1) mesh's "
@@ -3287,7 +3429,7 @@ def phase_distributed(step_ms):
     from repro_torch.configs import get_config
 
     # the loop child's two runs of DIST_STEPS steps each, f32 moments
-    want = optimizer_launches(dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS), 2 * DIST_STEPS)
+    want = optimizer_launches(dataclasses.replace(get_config(ARCH), n_layers=DIST_LAYERS), 2 * DIST_STEPS)
     line("distributed", launches=json.dumps(counts).replace(" ", ""),
          loop_child_launches=json.dumps(child).replace(" ", ""), expected=json.dumps(want).replace(" ", ""))
     if any(counts.values()) or child != want:
@@ -3500,12 +3642,241 @@ def _tp_seq_grads(root: str, mesh):
     return out
 
 
+TP_DECODE_ARCHS = ("qwen3-14b", "glm4-9b")  # (d): a split over KV heads, then over query groups
+# (d) on an f32 copy, logits and cache against one process and the plain
+# path: the readings were 1.6e-6 to 2.5e-6 of max |.| on the H100
+# (PERF.md, Findings); 1e-4 leaves room for another summation order and
+# fails a slot, page or head offset read wrong, which moves whole values
+TP_DECODE_F32_TOL = 1e-4
+
+
+def _tp_gather_vocab(logits, vocab: int):
+    """The whole logits (..., V) on every rank from each model rank's
+    columns (``transformer.vocab_logits``) under a tensor-parallel
+    context, ``logits`` itself without one: each rank's part padded to the
+    largest, all-gathered over ``model``, cut back and joined in order."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.common import current_tp, split_range
+
+    tp = current_tp()
+    if tp is None:
+        return logits
+    parts = [split_range(vocab, tp.model_size, r) for r in range(tp.model_size)]
+    width = max(hi - lo for lo, hi in parts)
+    pad = torch.nn.functional.pad(logits, (0, width - logits.shape[-1])).contiguous()
+    got = [torch.empty_like(pad) for _ in parts]
+    dist.all_gather(got, pad, group=tp.model_group)
+    return torch.cat([t[..., :hi - lo] for t, (lo, hi) in zip(got, parts)], dim=-1)
+
+
+def _tp_sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_serve(cfg, params, toks, plain: bool, f32: bool, fed=None, mesh=None):
+    """(d): a PROMPT-token prefill, then DECODE greedy decode steps (fed
+    ``fed`` instead where given, teacher-forced) through
+    ``launch/steps.build_prefill_step`` and ``build_decode_step``, ``pos``
+    a device scalar, eager (a CUDA graph cannot hold gloo's collectives),
+    under ``tensor_parallel(mesh)`` where ``mesh`` is given.  ``f32``: f32
+    weights (the caller's) and an f32 cache, prefilled by the step's body
+    (``api.prefill_fn`` at 0), since the step allocates a bf16 one.  ->
+    (tokens, whole logits (DECODE + 1, V) f32, cache, prefill ms, decode ms
+    a token), host clock, synchronised."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_parallel
+
+    dev = toks.device.type
+    shape = ShapeConfig("tp_serve", toks.shape[1] + DECODE, 1, "prefill")
+    decode = steps.build_decode_step(cfg, shape, plain_kernels=plain)
+    rows, tokens = [], []
+    with torch.inference_mode(), tensor_parallel(mesh):
+        _tp_sync(dev)
+        t0 = time.perf_counter()
+        if f32:
+            cache = {k: v.float() for k, v in api.init_cache(cfg, 1, shape.seq_len, dev).items()}
+            logits, cache = api.prefill_fn(cfg, plain)(params, {"tokens": toks}, cache, 0)
+            last = logits[:, -1]
+        else:
+            last, cache = steps.build_prefill_step(cfg, shape, plain_kernels=plain)(params, {"tokens": toks})
+        rows.append(_tp_gather_vocab(last, cfg.vocab_size).float())
+        _tp_sync(dev)
+        t1 = time.perf_counter()
+        pos = torch.tensor(toks.shape[1], dtype=torch.int32, device=dev)
+        for i in range(DECODE):
+            tok = rows[-1].argmax(-1, keepdim=True) if fed is None else torch.tensor([[fed[i]]], device=dev)
+            tokens.append(tok)
+            last, cache = decode(params, tok, cache, pos)
+            rows.append(_tp_gather_vocab(last, cfg.vocab_size).float())
+            pos += 1
+        _tp_sync(dev)
+        t2 = time.perf_counter()
+    return ([int(t) for t in torch.cat(tokens).flatten().tolist()], torch.cat(rows), cache,
+            (t1 - t0) * 1e3, (t2 - t1) * 1e3 / DECODE)
+
+
+def _tp_decode_inputs(arch: str, device: str = "cuda", smoke: bool = False):
+    """(d): full-width ``arch`` cut to TP_LAYERS layers, its bf16 weights
+    from SEED on ``device``, and its PROMPT-token prompt from SEED.
+    ``smoke`` (a rehearsal on the CPU): the smoke config and 16 tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=TP_LAYERS)
+    params = api.init_params(cfg, SEED, device)
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 16 if smoke else PROMPT)
+    return cfg, params, torch.tensor(prompt, dtype=torch.int64, device=device)[None, :]
+
+
+def _tp_decode_rank(root: str, rank: int, mesh, device: str = "cuda", smoke: bool = False):
+    """(d) on one rank, for each of TP_DECODE_ARCHS: the kernel path in
+    bf16 (the main path: launch counters reset just before and read just
+    after), the same again timed, the plain path under the same split
+    teacher-forced on its tokens, and the kernel and plain paths on an f32
+    copy of the weights, each greedy.  Saves tokens, whole logits, this
+    rank's KV-head view of each cache leaf (the kernel paths') and the
+    counts to ``root/tpd_<arch>_rank<r>.pt``.  ``device="cpu"`` with
+    ``smoke`` (the smoke configs, a 16-token prompt) rehearses it on the
+    CPU, where the wrappers take the plain versions."""
+    import torch
+
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.models import layers
+    from repro_torch.models.common import current_tp, tensor_parallel
+
+    gc.collect()  # (b)'s optimizer state: give its blocks back before two ranks load weights again
+    torch.cuda.empty_cache()
+    for arch in TP_DECODE_ARCHS:
+        cfg, params, toks = _tp_decode_inputs(arch, device, smoke)
+        with tensor_parallel(mesh):
+            kv = layers.gqa_heads(cfg, current_tp())[0]
+
+        def views(cache):  # each (L, B, S, KVH, Dh) leaf's KV heads [kv) of this rank
+            return {k: v[:, :, :, kv[0]:kv[1]].cpu() for k, v in cache.items()}
+
+        out = {"kv_heads": kv}
+        kernels.reset_launch_counts()
+        tokens, logits, cache, _, _ = _tp_serve(cfg, params, toks, plain=False, f32=False, mesh=mesh)
+        out["launches"] = kernels.launch_counts()
+        out["bf16"] = {"tokens": tokens, "logits": logits.cpu(), "cache": views(cache)}
+        *_, out["prefill_ms"], out["decode_ms"] = _tp_serve(cfg, params, toks, plain=False, f32=False, mesh=mesh)
+        _, plain, _, _, _ = _tp_serve(cfg, params, toks, plain=True, f32=False, fed=tokens, mesh=mesh)
+        out["bf16_plain"] = {"logits": plain.cpu()}
+        params = f32_tree(params)
+        tokens, logits, cache, _, _ = _tp_serve(cfg, params, toks, plain=False, f32=True, mesh=mesh)
+        out["f32"] = {"tokens": tokens, "logits": logits.cpu(), "cache": views(cache)}
+        tokens, logits, _, _, _ = _tp_serve(cfg, params, toks, plain=True, f32=True, mesh=mesh)
+        out["f32_plain"] = {"tokens": tokens, "logits": logits.cpu()}
+        torch.save(out, os.path.join(root, f"tpd_{arch}_rank{rank}.pt"))
+        del params, cache, logits, plain
+        torch.cuda.empty_cache()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _tp_decode_check(root: str, smi: str, device: str = "cuda", smoke: bool = False):
+    """(d) in this process, after the ranks: each arch's kernel path in one
+    process, in bf16 teacher-forced on the ranks' tokens and greedy on an
+    f32 copy; then every rank's runs gated against it and against the
+    plain path under the same split, bf16 within LOGIT_REL_TOL and f32
+    within TP_DECODE_F32_TOL of max |.|.  Prints every rank's line and
+    returns (the ranks' launches summed ({"flash", "paged_decode"}) of
+    their main-path runs, the gates failed), so the caller can read its
+    other parts' gates first.  ``device`` and
+    ``smoke`` as ``_tp_decode_rank`` took them (the CPU rehearsal in
+    tests/test_torch_decode_head_view.py)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    summed = {"flash": 0, "paged_decode": 0}
+    failed = []
+    want = dict.fromkeys(KERNELS, 0)  # on the CPU the wrappers take the plain versions: no launch
+    if device == "cuda":
+        want.update(flash=TP_LAYERS, paged_decode=TP_LAYERS * DECODE)  # one prefill, DECODE tokens
+    for arch in TP_DECODE_ARCHS:
+        ranks = [torch.load(os.path.join(root, f"tpd_{arch}_rank{r}.pt")) for r in range(TP_RANKS)]
+        cfg, params, toks = _tp_decode_inputs(arch, device, smoke)
+        full_layers = get_config(arch, smoke=smoke).n_layers
+        kernels.reset_launch_counts()
+        _, one_bf, one_cache_bf, _, _ = _tp_serve(cfg, params, toks, plain=False, f32=False,
+                                                  fed=ranks[0]["bf16"]["tokens"])
+        one_counts = kernels.launch_counts()
+        params = f32_tree(params)
+        one_tok32, one_32, one_cache_32, _, _ = _tp_serve(cfg, params, toks, plain=False, f32=True)
+        # on the host, beside the ranks' results
+        one_bf, one_32 = one_bf.cpu(), one_32.cpu()
+        one_cache_bf, one_cache_32 = ({k: v.cpu() for k, v in c.items()} for c in (one_cache_bf, one_cache_32))
+        del params
+        torch.cuda.empty_cache()
+        heads = set()
+        for r, o in enumerate(ranks):
+            lo, hi = o["kv_heads"]
+            heads |= set(range(lo, hi))
+            bf, pl, f32, p32 = o["bf16"], o["bf16_plain"], o["f32"], o["f32_plain"]
+            errs = {"bf16_vs_one_process": _rel_err(bf["logits"], one_bf),
+                    "bf16_vs_plain": _rel_err(bf["logits"], pl["logits"]),
+                    "f32_vs_one_process": _rel_err(f32["logits"], one_32),
+                    "f32_vs_plain": _rel_err(f32["logits"], p32["logits"])}
+            cache_errs = {}
+            for dtype, got, whole in (("bf16", bf["cache"], one_cache_bf), ("f32", f32["cache"], one_cache_32)):
+                for name, leaf in got.items():
+                    ref = whole[name][:, :, :, lo:hi]
+                    cache_errs[f"{dtype}_{name}"] = _rel_err(leaf, ref)
+            equal = {"f32_tokens_vs_one_process": f32["tokens"] == one_tok32,
+                     "f32_tokens_vs_plain": f32["tokens"] == p32["tokens"],
+                     "bf16_tokens_vs_rank0": bf["tokens"] == ranks[0]["bf16"]["tokens"]}
+            summed["flash"] += o["launches"]["flash"]
+            summed["paged_decode"] += o["launches"]["paged_decode"]
+            line("tensor-parallel", part="d", rank=r, arch=cfg.name, layers=f"{TP_LAYERS}_of_{full_layers}",
+                 kv_heads=f"{lo}:{hi}", launches=_nonzero(o["launches"]), expected=_nonzero(want),
+                 prefill_ms=f"{o['prefill_ms']:.2f}", decode_ms_per_token=f"{o['decode_ms']:.2f}",
+                 tokens=",".join(map(str, bf["tokens"])),
+                 **{k: f"{v:.4e}" for k, v in errs.items()}, **equal,
+                 cache_max_rel_err=json.dumps({k: float(f"{v:.4e}") for k, v in cache_errs.items()}).replace(" ", ""),
+                 tol=f"bf16:{LOGIT_REL_TOL}*max|.|,f32:{TP_DECODE_F32_TOL}*max|.|", card=smi.replace(" ", ""),
+                 note="eager;ranks_over_gloo_through_host_memory_not_NVLink")
+            if o["launches"] != want:
+                failed.append(f"{arch} rank {r} launched {o['launches']}, not {want}")
+            bad = [k for k, v in {**errs, **cache_errs}.items()
+                   if not v <= (LOGIT_REL_TOL if k.startswith("bf16") else TP_DECODE_F32_TOL)]
+            bad += [k for k, v in equal.items() if not v]
+            if bad:
+                failed.append(f"{arch} rank {r}: {bad}")
+        if heads != set(range(cfg.n_kv_heads)):
+            failed.append(f"{arch}: the ranks' KV heads {sorted(heads)} do not cover {cfg.n_kv_heads}")
+        if one_counts != want:
+            failed.append(f"{arch}: the one-process kernel path launched {one_counts}, not {want}")
+    return summed, failed
+
+
 def _tp_rank(rank: int, store: str, root: str):
     """One of TP_RANKS gloo ranks on the one card, at (data, model) = (1,
     TP_RANKS): (a) ``_tp_rank_grads``; (c) ``_tp_seq_grads``; (b)
     ``launch/train.main --full --layers TP_LAYERS --data 1 --model
-    TP_RANKS``.  Writes its results, its kernel launch counts among them,
-    to ``root/rank<r>.json``."""
+    TP_RANKS``; (d) ``_tp_decode_rank``.  Writes its results, the kernel
+    launch counts of (a)-(c) among them, to ``root/rank<r>.json``, and
+    (d)'s to ``root/tpd_*``."""
     import torch
     import torch.distributed as dist
 
@@ -3546,13 +3917,16 @@ def _tp_rank(rank: int, store: str, root: str):
                              str(TP_RANKS), "--device", "cuda"])
         out["launch_losses"], out["launch_s"] = res["losses"], time.perf_counter() - t0
         out["launches"] = kernels.launch_counts()
+        t0 = time.perf_counter()
+        _tp_decode_rank(root, rank, make_smoke_mesh(1, TP_RANKS, device="cuda"))
+        out["decode_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def phase_tensor_parallel():
+def phase_tensor_parallel(smi: str):
     """Tensor parallelism over ``model`` on the card: (a) full-width
     qwen3-14b, TP_LAYERS of 40 layers, f32: one process's loss and
     gradients, then TP_RANKS spawned gloo ranks at (1, TP_RANKS) on CUDA
@@ -3562,10 +3936,16 @@ def phase_tensor_parallel():
     collective bytes by kind and its peak memory beside the same step
     with ``seq_shard`` off, and ``lower_cell``'s prediction for the step
     at (1, TP_RANKS) (bf16, AdamW: the train step it traces); (b)
-    ``launch/train.main --model TP_RANKS`` in bf16 against ``--model 1``.
-    No kernel launches, in this process or on any rank (gated).  Step
-    times are over gloo through host memory (NCCL takes one rank a card),
-    so they say nothing of NVLink."""
+    ``launch/train.main --model TP_RANKS`` in bf16 against ``--model 1``;
+    (a)-(c) launch none of the attention and scan kernels, in this process
+    or on any rank (gated).  (d) on the same ranks, the decode step under
+    ``model`` through the flash and paged decode kernels (the cache a
+    rank's strided KV-head view), qwen3-14b and glm4-9b at full width and
+    TP_LAYERS layers, a PROMPT-token prefill and DECODE greedy tokens,
+    gated against one process's kernel path and the plain path under the
+    same split (``_tp_decode_check``).  Step times are over gloo through
+    host memory (NCCL takes one rank a card), so they say nothing of
+    NVLink.  Returns (d)'s launches, summed over the ranks."""
     import dataclasses
     import multiprocessing
     import tempfile
@@ -3602,6 +3982,12 @@ def phase_tensor_parallel():
         for r in range(TP_RANKS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
                 outs.append(json.load(f))
+        counts = kernels.launch_counts()  # (a)-(c) in this process
+        shutil.rmtree(os.path.join(root, "tp"), ignore_errors=True)
+        t_d = time.perf_counter()
+        tp_decode, tp_decode_failed = _tp_decode_check(root, smi)
+        line("tensor-parallel", part="d", ranks_s=f"{max(o['decode_s'] for o in outs):.1f}",
+             check_s=f"{time.perf_counter() - t_d:.1f}", launches=json.dumps(tp_decode).replace(" ", ""))
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch import steps
@@ -3621,7 +4007,6 @@ def phase_tensor_parallel():
          f"{TP_RANKS} vs --model 1, bf16, {TP_STEPS} steps", losses_model2=",".join(f"{x:.6f}" for x in losses),
          losses_model1=",".join(f"{x:.6f}" for x in one["losses"]), max_rel_gap=f"{rel:.3e}", rtol=TP_LAUNCH_RTOL,
          model2_s=f"{outs[0]['launch_s']:.1f}", model1_s=f"{one['s']:.1f}")
-    counts = kernels.launch_counts()
     # each rank's and the --model 1 run's launcher steps (f32 moments); the
     # gradient checks (a) and (c) run no optimizer
     want = optimizer_launches(cfg, TP_STEPS)
@@ -3647,6 +4032,9 @@ def phase_tensor_parallel():
         raise AssertionError(f"tensor-parallel: --model {TP_RANKS} losses {losses} against --model 1 "
                              f"{one['losses']} (rtol {TP_LAUNCH_RTOL}), launches {counts} here and "
                              f"{one['launches']} in the --model 1 run, not none and {want}")
+    if tp_decode_failed:  # (d)'s, after (a)-(c)'s
+        raise AssertionError("tensor-parallel (d): " + "; ".join(tp_decode_failed))
+    return tp_decode
 
 
 # -------------------------------------------------------------------- dry run
@@ -3893,8 +4281,9 @@ def kernels_line(recs, counts, replayed, by_path=None):
     """``recs`` maps each kernel to its record; ``counts`` to the launch
     counts of the main paths that run it: the serve paths for flash and
     paged_decode (qwen3-14b over the sharded store and over the cluster,
-    qwen2.5-32b, chameleon-34b and kimi-k2, each counted from 0 just
-    before it), the codec's entry points over the
+    qwen2.5-32b, chameleon-34b and kimi-k2, and phase tensor-parallel's
+    decode under model on its two ranks, each counted from 0 just before
+    it), the codec's entry points over the
     serve blocks and the latent slab for quantize and dequantize,
     rwkv6-1.6b for wkv, zamba2-1.2b for ssd, phase train's main path for
     the fused AdamW's sq_norm, adamw_update and factored_stats.  ``replayed`` maps each
@@ -3966,15 +4355,25 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails when the repository is not beside this file)
 
     t_start = time.perf_counter()
+    seconds, last = {}, [t_start]
+
+    def mark(name: str) -> None:  # the seconds since the previous mark, for the phase_seconds line
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
+
     smi = phase_device()
     phase_build()
+    mark("build")
     flash = phase_flash()
     decode = phase_paged_decode()
     wkv = phase_wkv()
     ssd = phase_ssd()
+    mark("kernels")
     cfg, params, res, counts = phase_serve(SEED)
     serve_replayed, serve_times = phase_decode_check(cfg, params, res)
     cluster_counts, cluster_replayed = phase_cluster(cfg, params, res["stages"])
+    mark("serve_and_cluster")
     # the KV blocks one 128-token prefill hands to the store, for the codec
     serve_blocks, _ = res["hook"](res["prompt"], 0)
     del params, res  # the steps hold the weights
@@ -3983,26 +4382,39 @@ def main() -> int:
     phase_decode_check(glm_cfg, glm_params, glm_res, phase="glm4-check", table="profile_prefill_glm4.txt")
     del glm_params, glm_res
     torch.cuda.empty_cache()
+    mark("glm4")
     cells = [phase_full_cell(phase, arch, n_layers) for phase, arch, n_layers in FULL_CELLS]
+    mark("full_cells")
     rwkv6_counts, rwkv6_replayed, _ = phase_model("rwkv6", SEED)
     zamba2_counts, zamba2_replayed, _ = phase_model("zamba2", SEED)
     phase_model("olmoe", SEED)
     _, _, slab = phase_model("minicpm3", SEED, capture=latent_slab)
     phase_model("whisper", SEED)
+    mark("models")
     quant, dequant, codec_counts = phase_kv_codec(serve_blocks, slab)
     adamw_recs = phase_adamw()
+    mark("codec_and_adamw")
     step_ms, train_graph, train_counts = phase_train()
+    mark("train")
     phase_distributed(step_ms)
-    phase_tensor_parallel()
+    mark("distributed")
+    tp_decode = phase_tensor_parallel(smi)
+    mark("tensor_parallel")
     phase_dryrun(step_ms, serve_times, cells)
+    mark("dryrun")
     phase_kernels_micro()
-    # the serve paths' attention launches: qwen3-14b's, then the full cells'
+    mark("kernels_micro")
+    # the serve paths' attention launches: qwen3-14b's, then the full cells';
+    # phase tensor-parallel's decode under model (d) runs eagerly, so it has
+    # launches and no replay to trace
     serve_paths = ([("qwen3-14b", counts, serve_replayed), ("cluster", cluster_counts, cluster_replayed)]
                    + [(c["phase"], c["counts"], c["replayed"]) for c in cells])
     by_path = {k: {p: {"launches": c[k], "replayed_launches": r[k]} for p, c, r in serve_paths}
                for k in ("flash", "paged_decode")}
-    path_counts = {"flash": sum(c["flash"] for _, c, _ in serve_paths),
-                   "paged_decode": sum(c["paged_decode"] for _, c, _ in serve_paths),
+    for k in by_path:
+        by_path[k]["tensor-parallel"] = {"launches": tp_decode[k], "note": "eager, no CUDA graph to replay"}
+    path_counts = {"flash": sum(c["flash"] for _, c, _ in serve_paths) + tp_decode["flash"],
+                   "paged_decode": sum(c["paged_decode"] for _, c, _ in serve_paths) + tp_decode["paged_decode"],
                    "quantize": codec_counts["quantize"], "dequantize": codec_counts["dequantize"],
                    "wkv": rwkv6_counts["wkv"], "ssd": zamba2_counts["ssd"]}
     replayed = {"flash": sum(r["flash"] for _, _, r in serve_paths),
@@ -4014,6 +4426,7 @@ def main() -> int:
     replayed.update({k: train_graph["per_replay"].get(k, 0) * train_graph["replays"] for k in ADAMW_KERNELS})
     recs = {"flash": flash, "paged_decode": decode, "quantize": quant, "dequantize": dequant, "wkv": wkv, "ssd": ssd,
             **adamw_recs}
+    line("timing", phase_seconds=json.dumps(seconds).replace(" ", ""))
     print(json.dumps(kernels_line(recs, path_counts, replayed, by_path)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.1f} card={smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,16 @@
 
     python3 scripts/bf16_gate_sensitivity.py
 
-chip_smoke.py holds each recurrent model's kernel path against its plain
+chip_smoke.py held each recurrent model's kernel path against its plain
 path in bf16, teacher-forced, at 5 % of max |logit|.  This prints that gap
 for full-width rwkv6-1.6b from seeds 0 and 1, two ways: with the WKV
 kernel, and with the scan evaluated in float64 by its plain version and
 rounded to f32 (more exact than either path).  It also prints the share of
 the scan's outputs and final state that the kernel gives bit for bit as
-the plain version at the model's shape.  Needs one CUDA device.
+the plain version at the model's shape, and, at both seeds, the gate that
+replaced rwkv6's bf16 logit gate in chip_smoke.py: each layer's WKV kernel
+against its plain version on that layer's own inputs
+(``chip_smoke.wkv_layer_gate``, atol = rtol 3e-4).  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.rwkv6 import wkv_chunked_plain, wkv_model  # noqa: E402
@@ -65,6 +70,21 @@ def gate_gap(seed: int, scan: str) -> None:
     torch.cuda.empty_cache()
 
 
+def layer_gate(seed: int) -> None:
+    import chip_smoke
+
+    cfg = get_config("rwkv6-1.6b")
+    params = api.init_params(cfg, seed, "cuda")
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, PROMPT).tolist()
+    _, fed, _ = greedy_decode(cfg, params, prompt, DECODE, "cuda")
+    records = chip_smoke.wkv_layer_inputs(cfg, params, prompt, fed)
+    err, share, where = chip_smoke.wkv_layer_gate(records, lambda *a: wkv_model(*a[:6], chunk=a[6]))
+    print(f"[layer-gate] rwkv6-1.6b seed {seed}: {len(records)} layers, WKV kernel vs plain max |err| {err:.3e}, "
+          f"{share:.3f} of the limit at {where} (atol = rtol {chip_smoke.WKV_TOL}): passed", flush=True)
+    del params, records
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bf16_gate_sensitivity: no CUDA device", file=sys.stderr)
@@ -75,6 +95,7 @@ def main() -> int:
     for seed in (0, 1):
         for scan in ("kernel", "f64"):
             gate_gap(seed, scan)
+        layer_gate(seed)
     return 0
 
 

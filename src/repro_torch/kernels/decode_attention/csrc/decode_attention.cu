@@ -31,7 +31,10 @@
 // page by cp.async (16 bytes a copy, every copy's table lookup issued
 // before the copies, slots past the range zero-filled) into a ring of two
 // shared-memory stages in the input dtype, chunk c+1 in flight while chunk
-// c computes.  All G query rows of the KV head share each load.  It writes
+// c computes.  A slot's address comes from the page and slot strides the
+// wrapper passes, so the pages may be a strided view of a larger cache (a
+// rank's KV heads under a split over model) and are never copied.  All G
+// query rows of the KV head share each load.  It writes
 // its unnormalised partial (m, l, acc[G][D]) in f32 to scratch the wrapper
 // allocates.  Two instances:
 //
@@ -94,13 +97,15 @@ __device__ __forceinline__ float warp_sum(float x) {
     return x;
 }
 
-// part_ml: (B, KVH, n_splits, G, 2) f32 {m, l}; part_acc: (B, KVH, n_splits, G, D) f32
+// part_ml: (B, KVH, n_splits, G, 2) f32 {m, l}; part_acc: (B, KVH, n_splits, G, D) f32.
+// ps, ss: the page and slot strides of k and v, which share them.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp, const float* __restrict__ vp,
                           const int* __restrict__ tables, const int* __restrict__ lens,
                           float* __restrict__ part_ml, float* __restrict__ part_acc,
-                          int KVH, int G, int page, int NB, int split_len, float scale) {
+                          int KVH, int G, int page, int NB, int split_len, float scale,
+                          int64_t ps, int64_t ss) {
     constexpr int VEC = 4;                     // elements per 16-byte copy
     constexpr int CPR = D / VEC;               // copies (16-byte pieces) per token row
     constexpr int LPT = pow2_ceil(CPR);        // lanes per token row in the scores
@@ -134,7 +139,12 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
         return;
     }
     const int* trow = tables + (int64_t)b * NB;
-    const int64_t tok_stride = (int64_t)KVH * D;  // between slots of a page
+    // The pages may be a strided view (a rank's KV heads of a whole cache,
+    // under a split over model): slot t's row starts trow[t / page] * ps +
+    // (t % page) * ss elements into k or v (ps, ss: the page and slot
+    // strides the wrapper reads off k and v, which must share them), and
+    // head kvh D elements further, heads and head dims being contiguous.
+    // For contiguous pages ps = page * KVH * D and ss = KVH * D.
     const float* kb = kp + (int64_t)kvh * D;
     const float* vb = vp + (int64_t)kvh * D;
 
@@ -150,7 +160,7 @@ paged_decode_split_kernel(const float* __restrict__ q, const float* __restrict__
             const int i = tid + it * THREADS;
             const int t = t0 + i / CPR;
             off[it] = -1;
-            if (i < NCP && t < t_end) off[it] = ((int64_t)trow[t / page] * page + t % page) * tok_stride;
+            if (i < NCP && t < t_end) off[it] = (int64_t)trow[t / page] * ps + (int64_t)(t % page) * ss;
         }
 #pragma unroll
         for (int it = 0; it < PER; ++it) {
@@ -347,7 +357,8 @@ __global__ void __launch_bounds__(THREADS)
 paged_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, const bf16* __restrict__ vp,
                         const int* __restrict__ tables, const int* __restrict__ lens,
                         float* __restrict__ part_ml, float* __restrict__ part_acc,
-                        int KVH, int G, int page, int NB, int split_len, float scale) {
+                        int KVH, int G, int page, int NB, int split_len, float scale,
+                        int64_t ps, int64_t ss) {
     using L = Layout<D>;
     constexpr int LPT = D / 8;          // 16-byte copies per token row
     constexpr int NCP = CH * LPT;       // copies per chunk, each of K and V
@@ -378,7 +389,7 @@ paged_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
         return;
     }
     const int* trow = tables + (int64_t)b * NB;
-    const int64_t tok_stride = (int64_t)KVH * D;
+    // slot offsets from the page and slot strides, as in the f32 kernel
     const bf16* kb = kp + (int64_t)kvh * D;
     const bf16* vb = vp + (int64_t)kvh * D;
 
@@ -389,7 +400,7 @@ paged_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
         for (int it = 0; it < PER; ++it) {
             const int t = t0 + (tid + it * THREADS) / LPT;
-            off[it] = t < t_end ? ((int64_t)trow[t / page] * page + t % page) * tok_stride : -1;
+            off[it] = t < t_end ? (int64_t)trow[t / page] * ps + (int64_t)(t % page) * ss : -1;
         }
 #pragma unroll
         for (int it = 0; it < PER; ++it) {
@@ -567,7 +578,7 @@ template <typename T> constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloa
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* tables, const int* lens,
            float* part_ml, float* part_acc, void* o, int B, int KVH, int G, int page, int NB,
-           int n_splits, int split_len, float scale, cudaStream_t stream) {
+           int n_splits, int split_len, float scale, int64_t ps, int64_t ss, cudaStream_t stream) {
     cudaError_t e;
     if constexpr (kTensorCores<T>) {
         auto kern = tc::paged_decode_mma_kernel<D>;
@@ -577,7 +588,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, con
         kern<<<dim3(n_splits, KVH * ((G + 15) / 16), B), THREADS, tc::Layout<D>::SMEM, stream>>>(
             static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
             static_cast<const __nv_bfloat16*>(vp), tables, lens, part_ml, part_acc, KVH, G, page, NB,
-            split_len, scale);
+            split_len, scale, ps, ss);
     } else {
         const size_t smem = split_smem_bytes(G, D);
         auto kern = paged_decode_split_kernel<D>;
@@ -586,7 +597,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, con
         if (e != cudaSuccess) return (int)e;
         kern<<<dim3(n_splits, KVH, B), THREADS, smem, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(kp), static_cast<const float*>(vp),
-            tables, lens, part_ml, part_acc, KVH, G, page, NB, split_len, scale);
+            tables, lens, part_ml, part_acc, KVH, G, page, NB, split_len, scale, ps, ss);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -601,12 +612,13 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables, con
 template <typename T>
 int dispatch_d(int D, const void* q, const void* kp, const void* vp, const int* tables,
                const int* lens, float* part_ml, float* part_acc, void* o, int B, int KVH, int G,
-               int page, int NB, int n_splits, int split_len, float scale, cudaStream_t s) {
+               int page, int NB, int n_splits, int split_len, float scale, int64_t ps, int64_t ss,
+               cudaStream_t s) {
     switch (D) {
-        case 32: return launch<T, 32>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
-        case 64: return launch<T, 64>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
-        case 112: return launch<T, 112>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
-        case 128: return launch<T, 128>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
+        case 32: return launch<T, 32>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
+        case 64: return launch<T, 64>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
+        case 112: return launch<T, 112>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
+        case 128: return launch<T, 128>(q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -615,19 +627,24 @@ int dispatch_d(int D, const void* q, const void* kp, const void* vp, const int* 
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  q, o (B, KVH*G, D); k/v pages
-// (P, page, KVH, D); tables (B, NB) int32; lens (B,) int32; all contiguous.
+// dtype: 0 float32, 1 bfloat16.  q, o (B, KVH*G, D), tables (B, NB) int32
+// and lens (B,) int32 contiguous; k/v pages (P, page, KVH, D), contiguous
+// over (KVH, D) and starting on 16 bytes, at the strides ``strides`` gives
+// (host memory, in elements, each a whole number of 16 bytes): {k page,
+// k slot, v page, v slot}, v's equal to k's (cudaErrorInvalidValue else).
 // part_ml (B, KVH, n_splits, G, 2) and part_acc (B, KVH, n_splits, G, D)
 // f32 scratch; split s covers slots [s*split_len, (s+1)*split_len).
 // Returns the cudaError_t of the launches (0 on success).
 int paged_decode_fwd(int dtype, const void* q, const void* kp, const void* vp,
                      const int* tables, const int* lens, float* part_ml, float* part_acc, void* o,
                      int B, int KVH, int G, int D, int page, int NB, int n_splits, int split_len,
-                     float scale, void* stream) {
+                     const int64_t* strides, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (strides[0] != strides[2] || strides[1] != strides[3]) return (int)cudaErrorInvalidValue;
+    const int64_t ps = strides[0], ss = strides[1];
     switch (dtype) {
-        case 0: return dispatch_d<float>(D, q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
-        case 1: return dispatch_d<__nv_bfloat16>(D, q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, s);
+        case 0: return dispatch_d<float>(D, q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
+        case 1: return dispatch_d<__nv_bfloat16>(D, q, kp, vp, tables, lens, part_ml, part_acc, o, B, KVH, G, page, NB, n_splits, split_len, scale, ps, ss, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

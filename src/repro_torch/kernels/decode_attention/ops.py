@@ -6,7 +6,9 @@ fallback from the kernel to the plain version.
 
 The kernel splits each (sequence, KV head)'s slot range across blocks and
 joins the partial softmaxes in a second kernel; ``split_plan`` picks the
-split from shapes alone, so no call reads ``kv_len`` on the host.
+split from shapes alone, so no call reads ``kv_len`` on the host.  The
+pages may be a strided view (``page_strides``: a rank's KV heads of a
+whole cache under a split over ``model``); the kernel reads them in place.
 """
 
 from __future__ import annotations
@@ -52,6 +54,33 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def page_strides(name: str, pages) -> tuple:
+    """(page stride, slot stride), in elements, of k or v pages (P, page,
+    KVH, D) the kernel can read in place: contiguous over (KVH, D), page
+    and slot strides of whole 16-byte units, a start on 16 bytes.  A view
+    of a rank's KV heads of a whole cache (``models/layers.kv_head_view``)
+    is such pages; so is the empty part of a split (KVH 0).  Raises
+    ValueError on any other layout: the kernel copies nothing."""
+    vec = 16 // pages.element_size()  # the kernel gathers 16-byte copies
+    if pages.stride(3) != 1 or (pages.shape[2] > 1 and pages.stride(2) != pages.shape[3]):
+        raise ValueError(f"{name} must be contiguous over (heads, head_dim); strides {pages.stride()}")
+    if pages.data_ptr() % 16 or pages.stride(0) % vec or pages.stride(1) % vec:
+        raise ValueError(f"{name} must start on 16 bytes with page and slot strides of whole 16-byte units; "
+                         f"strides {pages.stride()}")
+    return pages.stride(0), pages.stride(1)
+
+
+def kv_page_strides(k_pages, v_pages) -> tuple:
+    """The (page stride, slot stride) k and v pages share, each taken by
+    ``page_strides``.  Every cache the models hold lays v out as k, so the
+    kernel reads both at one pair of strides; raises ValueError where they
+    differ."""
+    ks, vs = page_strides("k_pages", k_pages), page_strides("v_pages", v_pages)
+    if ks != vs:
+        raise ValueError(f"k and v pages must share their page and slot strides; got {ks} and {vs}")
+    return ks
+
+
 def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError("paged_decode expects q (B,H,D) and k/v pages (P,page,KVH,D)")
@@ -75,9 +104,10 @@ def _check(q, k_pages, v_pages, block_tables, kv_len) -> None:
 
 
 def paged_decode(q, k_pages, v_pages, block_tables, kv_len):
-    """q (B, H, D); k/v_pages (P, page, KVH, D); block_tables (B, NB) int32;
-    kv_len (B,) int32 -> (B, H, D) in q's dtype.  Slots at or past kv_len
-    are masked; a row with kv_len = 0 gives zeros."""
+    """q (B, H, D); k/v_pages (P, page, KVH, D), contiguous or a view
+    ``page_strides`` takes; block_tables (B, NB) int32; kv_len (B,) int32
+    -> (B, H, D) in q's dtype.  Slots at or past kv_len are masked; a row
+    with kv_len = 0 gives zeros."""
     _check(q, k_pages, v_pages, block_tables, kv_len)
     return _build.run_on("paged_decode", q.device, lambda: paged_decode_ref(q, k_pages, v_pages, block_tables, kv_len),
                          lambda: _launch(q, k_pages, v_pages, block_tables, kv_len),
@@ -94,12 +124,10 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
     NB = block_tables.shape[1]
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("kv_len", kv_len)):
+    for name, t in (("q", q), ("block_tables", block_tables), ("kv_len", kv_len)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("k/v pages must start on 16 bytes (the kernel gathers 16-byte copies)")
+    strides = (ctypes.c_int64 * 4)(*kv_page_strides(k_pages, v_pages) * 2)
     lib = _build.bind("decode_attention", _SIGNATURES)
     if lib.paged_decode_smem_bytes(DTYPE_CODES[q.dtype], G, D) > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D} needs more shared memory than one block has")
@@ -110,7 +138,7 @@ def _launch(q, k_pages, v_pages, block_tables, kv_len):
     _build.call(lib, "paged_decode", "paged_decode_fwd", q.device,
                 DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), kv_len.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-                o.data_ptr(), B, KVH, G, D, page, NB, n_splits, split_len, float(D**-0.5))
+                o.data_ptr(), B, KVH, G, D, page, NB, n_splits, split_len, strides, float(D**-0.5))
     launches += 1
     return o
 
@@ -125,11 +153,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p,
     ]),
     "paged_decode_smem_bytes": (ctypes.c_size_t, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "paged_decode_design": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-__all__ = ["design", "paged_decode", "paged_decode_ref", "split_plan"]
+__all__ = ["design", "kv_page_strides", "page_strides", "paged_decode", "paged_decode_ref", "split_plan"]

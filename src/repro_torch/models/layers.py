@@ -157,7 +157,12 @@ def attend(q, k, v, causal: bool, q_offset: int, plain: bool):
 
 def decode_over_cache(q, ck, cv, index, plain: bool):
     """One query token per sequence against the dense cache viewed, without
-    a copy, as KV pages: (B, S_max, KVH, Dh) -> (B*S_max/PAGE, PAGE, KVH, Dh)."""
+    a copy, as KV pages: (B, S_max, KVH, Dh) -> (B*S_max/PAGE, PAGE, KVH, Dh).
+    ``ck``/``cv`` may be a rank's KV-head view of a whole cache
+    (``kv_head_view``): the pages are then strided too, their slots the
+    whole cache's KVH·Dh elements apart and their pages PAGE times that,
+    and ``paged_decode`` reads them in place at those page and slot
+    strides (``decode_attention.page_strides``)."""
     B, S_max, KVH, Dh = ck.shape
     tables, lens = index
     kp = ck.view(B * (S_max // PAGE), PAGE, KVH, Dh)
@@ -226,9 +231,12 @@ def gqa_attention(p, cfg, x, positions, cache: Optional[Tuple] = None, *,
     ``decode_index(B, S_max, pos + 1)`` (built here when the caller passes
     none).  Under a tensor-parallel context: this rank's heads
     (``gqa_shard``), summed over ``model`` after ``wo``, and of the cache
-    (held whole) the view of its KV heads (``gqa_heads``); x is the rank's
-    rows of the sequence, and so is the output, while the stream is split
-    over it."""
+    (held whole) the view of its KV heads (``gqa_heads``, ``kv_head_view``:
+    contiguous over heads and head dims, its slots the whole cache's
+    KVH·Dh apart), which the flash kernel reads at its batch and sequence
+    strides and the paged decode kernel at its page and slot strides, with
+    no copy; x is the rank's rows of the sequence, and so is the output,
+    while the stream is split over it."""
     Dh = cfg.d_head
     tp = current_tp()
     if tp is not None:

@@ -519,3 +519,127 @@ def seq_shard_ranks(rank, world, workdir, meshes):
             batch = {k: v[:, :SEQ_UNEVEN_S] for k, v in train_batch(cfg, 0).items()}
             out[(data, model, case, "uneven")] = checkpointed_inputs(cfg, mesh, batch)
     return out
+
+
+# ------------------------------------- the decode step over a rank's KV heads
+VIEW_B, VIEW_S, VIEW_PROMPT = 2, 32, 8  # rows, cache slots (two 16-slot pages a row), prompt tokens
+
+
+def decode_page_views(rank, world, workdir, cases):
+    """Under ``tensor_parallel`` at (data, model) = (1, world): a prefill of
+    VIEW_PROMPT tokens and one decode step of each case in bf16 through the
+    kernels' wrappers (their plain versions on the CPU), recording the k
+    and v pages ``layers.decode_over_cache`` hands ``paged_decode``: whether
+    they share the cache's storage, their offset in it and strides (in
+    elements), whether they are contiguous, and what
+    ``decode_attention.page_strides`` reads off them.  -> {case:
+    {"kv_heads", "pages": [per call {"k": ..., "v": ...}], "cache_numel"}}."""
+    from repro_torch.kernels.decode_attention import page_strides
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api, layers
+    from repro_torch.models.common import current_tp, tensor_parallel
+
+    torch.set_num_threads(1)
+    mesh = make_smoke_mesh(1, world, device="cpu")
+    real, out = layers.paged_decode, {}
+    for case in cases:
+        cfg = tp_config(case)
+        params = api.init_params(cfg, 0, "cpu")
+        cache = api.init_cache(cfg, VIEW_B, VIEW_S, "cpu")
+        seen = []
+
+        def describe(pages, leaf):
+            return {"shares_storage": pages.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr(),
+                    "offset": pages.storage_offset(), "strides": pages.stride(), "shape": tuple(pages.shape),
+                    "contiguous": pages.is_contiguous(), "page_strides": page_strides("pages", pages)}
+
+        def recording(q, kp, vp, tables, lens):
+            seen.append({"k": describe(kp, cache["k"]), "v": describe(vp, cache["v"])})
+            return real(q, kp, vp, tables, lens)
+
+        tokens = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab_size, (VIEW_B, VIEW_PROMPT)))
+        layers.paged_decode = recording
+        try:
+            with torch.no_grad(), tensor_parallel(mesh):
+                _, cache = api.prefill_fn(cfg)(params, {"tokens": tokens}, cache, 0)
+                api.decode_fn(cfg)(params, tokens[:, :1], cache, VIEW_PROMPT)
+                kv = layers.gqa_heads(cfg, current_tp())[0]
+        finally:
+            layers.paged_decode = real
+        out[case] = {"kv_heads": kv, "pages": seen, "cache_shape": tuple(cache["k"].shape)}
+    return out
+
+
+def _nest(flat):
+    """{'a/b': array} -> {'a': {'b': f32 tensor}}."""
+    tree = {}
+    for path, a in flat.items():
+        *head, last = path.split("/")
+        d = tree
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = torch.from_numpy(np.asarray(a, np.float32))
+    return tree
+
+
+def cached_steps_ranks(rank, world, workdir, inp_path, cases, data: int, n_steps: int):
+    """The port's prefill, then ``n_steps`` greedy decode steps through
+    ``launch.steps.build_decode_step`` (``pos`` a 0-d int32 tensor), with
+    the kernels' wrappers (their plain versions on the CPU), under
+    ``tensor_parallel`` of the (data, world / data) mesh, at the f32
+    parameters and (B, S) tokens ``inp_path`` holds for each case (the JAX
+    package's, by key path).  The prefill is ``build_prefill_step``'s body
+    (``api.prefill_fn`` at 0 into a fresh cache of S + n_steps slots, the
+    last token's logits) with the cache in f32.  This rank takes its rows
+    of the batch (``sharding.batch_shardings``).  -> {case: {"rows",
+    "logits": [(rows, V) whole, ``gather_vocab``] per step, "tokens": [(rows,
+    1)] per decode step}}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_parallel
+
+    torch.set_num_threads(1)
+    mesh = make_smoke_mesh(data, world // data, device="cpu")
+    inp = dict(np.load(inp_path))
+    out = {}
+    for case in cases:
+        cfg = tp_config(case)
+        pre = f"{case}|p|"
+        params = _nest({k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)})
+        tokens = torch.from_numpy(inp[f"{case}|tokens"]).long()
+        B, S = tokens.shape
+        rows = shd.batch_shardings(mesh, tokens).shard_slices((B, S))[tuple(mesh.get_coordinate())][0]
+        decode = steps.build_decode_step(cfg, ShapeConfig("d", S + n_steps, B, "decode"))
+        cache = _map(lambda t: t.float(), api.init_cache(cfg, rows.stop - rows.start, S + n_steps, "cpu"))
+        res = {"rows": (rows.start, rows.stop), "logits": [], "tokens": []}
+        with torch.no_grad(), tensor_parallel(mesh):
+            logits, cache = api.prefill_fn(cfg)(params, {"tokens": tokens[rows]}, cache, 0)
+            last = logits[:, -1]
+            for i in range(n_steps + 1):
+                full = gather_vocab(last, cfg.vocab_size)
+                res["logits"].append(full)
+                if i == n_steps:
+                    break
+                tok = full.argmax(-1, keepdim=True)
+                res["tokens"].append(tok)
+                last, cache = decode(params, tok, cache, torch.tensor(S + i, dtype=torch.int32))
+        out[case] = res
+    return out
+
+
+def chip_smoke_decode_ranks(rank, world, workdir):
+    """``chip_smoke.py``'s phase tensor-parallel part (d) on this rank,
+    rehearsed on the CPU: the smoke configs of its archs at (data, model)
+    = (1, world), results to ``workdir``."""
+    import sys
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    torch.set_num_threads(1)
+    chip_smoke._tp_decode_rank(workdir, rank, make_smoke_mesh(1, world, device="cpu"), device="cpu", smoke=True)
