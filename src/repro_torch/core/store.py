@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs.tracing import maybe_span
 from .batchops import BatchOpsMixin
 from .codec import CODEC_INT8, BatchCodec
 from .controller import OP_EMPTY, OP_RANGE, OP_READ, OP_WRITE, AdaptiveController
@@ -290,7 +291,12 @@ class KVBlockStore(BatchOpsMixin):
     def probe(self, tokens: Sequence[int]) -> int:
         """Longest cached prefix length in tokens (multiple of block_size).
         Binary search over block counts; each step is an LSM point lookup
-        (paper App. B: Bloom filters prune the misses)."""
+        (paper App. B: Bloom filters prune the misses).  Traced as
+        ``store.probe``."""
+        with maybe_span("store.probe"):
+            return self._probe(tokens)
+
+    def _probe(self, tokens: Sequence[int]) -> int:
         B = self.block_size
         max_blocks = len(tokens) // B
         with self._stats_lock:
@@ -355,7 +361,9 @@ class KVBlockStore(BatchOpsMixin):
     # ------------------------------------------------------------------- get
     def get_batch(self, tokens: Sequence[int], n_tokens: int) -> List[np.ndarray]:
         """Load the cached blocks covering ``tokens[:n_tokens]``: one index
-        range scan, then a coalesced batch read from the tensor log."""
+        range scan, then a coalesced batch read from the tensor log.  Traced
+        as ``store.scan``, ``store.read`` and ``store.decode`` (units: the
+        blocks read and decoded), once each a call."""
         B = self.block_size
         n_blocks = n_tokens // B
         if n_blocks == 0:
@@ -373,17 +381,20 @@ class KVBlockStore(BatchOpsMixin):
         # attempts: a reader can lose the eviction race at most once per
         # maintenance cycle in practice.
         for _attempt in range(3):
-            ptrs = self._scan_block_ptrs(tokens, n_blocks)
+            with maybe_span("store.scan"):
+                ptrs = self._scan_block_ptrs(tokens, n_blocks)
             present = [(i, p) for i, p in enumerate(ptrs) if p is not None]
             blocks = [None] * n_blocks
             if not present:
                 break
             try:
-                recs = self.log.read_batch([p for _, p in present])
+                with maybe_span("store.read", units=len(present)):
+                    recs = self.log.read_batch([p for _, p in present])
             except FileNotFoundError:
                 continue  # lost the race with eviction/merge: retry
-            for (i, _), (_, payload) in zip(present, recs):
-                blocks[i] = BatchCodec.decode(payload)
+            with maybe_span("store.decode", units=len(recs)):
+                for (i, _), (_, payload) in zip(present, recs):
+                    blocks[i] = BatchCodec.decode(payload)
             break
         # only the contiguous prefix is usable as KV cache
         out: List[np.ndarray] = []

@@ -7,7 +7,9 @@ Request lifecycle (paper Fig. 6):
 
 Production concerns implemented here:
   * continuous batching with a token budget per engine step,
-  * TTFT accounting split into measured I/O + (modeled or real) compute,
+  * TTFT accounting split into the wait from ``submit`` until the engine
+    thread starts serving the request (``queue_s``) + measured I/O +
+    (modeled or real) compute,
   * a two-stage pipeline (``runtime=RuntimeServices(...)``): while batch k
     is being served, batch k+1's disk fetches (probe + batched get) are
     already running on the I/O executor — ``hierarchy.plan`` on the engine
@@ -22,7 +24,11 @@ Production concerns implemented here:
     Without a runtime the legacy inline re-issue path is used,
   * scheduled maintenance (LSM compaction / file merging) between batches —
     run through ``MaintenanceService`` off the request path when a runtime
-    is attached, inline otherwise.
+    is attached, inline otherwise,
+  * request timelines (``tracing=True``): per request the spans ``queue``,
+    ``plan``, ``fetch`` (with the store's spans beneath it, on the I/O
+    thread), ``io_wait``, ``fulfill``, ``compute`` (with the hook's) and
+    ``commit``, kept in ``ServingEngine.traces`` by request id.
 
 Concurrency contract for the stats: ``EngineStats`` is only ever mutated
 on the engine thread.  Worker-side counters live in the runtime services'
@@ -45,8 +51,8 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..cache.hierarchy import AcquirePlan, CacheHierarchy, DiskFetch
-from ..obs import MetricsRegistry, TraceContext, activate, dataclass_gauges
-from ..obs.tracing import maybe_span
+from ..obs import ENGINE_SPANS, MetricsRegistry, TraceContext, activate, dataclass_gauges
+from ..obs.tracing import TraceSink, maybe_span
 from ..runtime import RuntimeServices
 from .compute_model import ComputeModel
 
@@ -64,6 +70,7 @@ class RequestRecord:
     hedged: bool = False
     prefetched: bool = False
     stage: int = -1
+    queue_s: float = 0.0  # submit -> the engine thread starts serving it
 
 
 @dataclass
@@ -111,6 +118,7 @@ class _Staged:
     plan: Optional[AcquirePlan]
     future: Optional[object] = None  # Future[DiskFetch] when prefetched
     trace: Optional[TraceContext] = None  # per-request trace (tracing=True)
+    arrival: float = 0.0  # perf_counter at submit
 
 
 class ServingEngine:
@@ -136,7 +144,11 @@ class ServingEngine:
         measurable end to end on a CPU-only container: the I/O executor
         prefetches into exactly the window a GPU deployment would expose.
         Off by default (tests and hit-rate benchmarks don't want the wall
-        time)."""
+        time).
+
+        ``tracing``: a ``TraceContext`` per request; the finished traces of
+        the last ``TRACE_SINK_CAPACITY`` requests are kept in
+        ``self.traces`` (a ``TraceSink``, by request id)."""
         self.h = hierarchy
         self.compute = compute
         self.kv_bytes_per_token = kv_bytes_per_token
@@ -157,12 +169,13 @@ class ServingEngine:
         else:
             self._maintenance = None
         self.stats = EngineStats()
-        self._queue: Deque = deque()  # popleft is O(1); list.pop(0) was O(n)
+        self._queue: Deque = deque()  # (request, arrival); popleft is O(1)
         self._staged: Optional[List[_Staged]] = None  # batch k+1, prefetching
         self._batches = 0
         self._ewma_read_s: float = 0.0
         self._block_template: Optional[np.ndarray] = None
         self.tracing = bool(tracing)
+        self.traces = TraceSink()
         self.registry = registry if registry is not None else MetricsRegistry()
         self._register_metrics()
 
@@ -195,7 +208,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------ lifecycle
     def submit(self, request) -> None:
-        self._queue.append(request)
+        self._queue.append((request, time.perf_counter()))
 
     def run(self) -> List[RequestRecord]:
         out = []
@@ -218,10 +231,10 @@ class ServingEngine:
     # ------------------------------------------------------- batch formation
     def _form_batch(self) -> List:
         batch, tokens = [], 0
-        while self._queue and tokens + len(self._queue[0].tokens) <= self.max_batch_tokens:
-            r = self._queue.popleft()
-            batch.append(r)
-            tokens += len(r.tokens)
+        while self._queue and tokens + len(self._queue[0][0].tokens) <= self.max_batch_tokens:
+            item = self._queue.popleft()
+            batch.append(item)
+            tokens += len(item[0].tokens)
         if not batch and self._queue:  # oversized single request
             batch.append(self._queue.popleft())
         return batch
@@ -231,12 +244,12 @@ class ServingEngine:
         phase 2 on the executor (prefetch-ahead)."""
         staged = []
         ex = self.runtime.executor if self.runtime is not None else None
-        for r in batch:
+        for r, arrival in batch:
             trace = TraceContext() if self.tracing else None
             if ex is None:
                 # no runtime: the legacy acquire path re-plans internally,
                 # so planning here would walk the radix tree twice
-                staged.append(_Staged(req=r, plan=None, trace=trace))
+                staged.append(_Staged(req=r, plan=None, trace=trace, arrival=arrival))
                 continue
             with activate(trace) if trace is not None else nullcontext():
                 plan = self.h.plan(r.tokens)
@@ -252,7 +265,7 @@ class ServingEngine:
                     fut = ex.try_submit(self.h.fetch, plan)
                     if fut is not None:
                         self.stats.prefetched_requests += 1
-            staged.append(_Staged(req=r, plan=plan, future=fut, trace=trace))
+            staged.append(_Staged(req=r, plan=plan, future=fut, trace=trace, arrival=arrival))
         return staged
 
     def step(self) -> List[RequestRecord]:
@@ -359,26 +372,34 @@ class ServingEngine:
         return fetched, wait_s, hedged
 
     def _serve_one(self, st: _Staged) -> RequestRecord:
+        queue_s = time.perf_counter() - st.arrival
         with activate(st.trace) if st.trace is not None else nullcontext():
-            rec = self._serve(st)
+            if st.trace is not None:
+                st.trace.add_span("queue", st.arrival, queue_s)
+            rec = self._serve(st, queue_s)
         self._h_ttft.observe(rec.ttft_s)
         self._h_io_wait.observe(rec.io_wait_s)
         if st.trace is not None:
-            # one histogram per span name: the engine-side closure of the
-            # trace, matching the node-side close-out in the server
-            for name, total in st.trace.span_totals().items():
-                self.registry.histogram(
-                    f"repro_engine_span_seconds_{name}").observe(total)
+            # one histogram per pipeline span: the engine-side closure of
+            # the trace, matching the node-side close-out in the server;
+            # the whole trace stays in the sink
+            totals = st.trace.span_totals()
+            for name in ENGINE_SPANS:
+                if name in totals:
+                    self.registry.histogram(
+                        f"repro_engine_span_seconds_{name}").observe(totals[name])
+            self.traces.add(rec.rid, st.trace)
         return rec
 
-    def _serve(self, st: _Staged) -> RequestRecord:
+    def _serve(self, st: _Staged, queue_s: float = 0.0) -> RequestRecord:
         req = st.req
         tokens = req.tokens
         B = self.h.block_size
         prefetched = st.future is not None
         first_block_s: Optional[float] = None
         if self.runtime is not None:
-            fetched, wait_s, hedged = self._resolve_fetch(st)
+            with maybe_span("io_wait"):
+                fetched, wait_s, hedged = self._resolve_fetch(st)
             first_block_s = fetched.first_block_s
             t1 = time.perf_counter()
             acq = self.h.fulfill(st.plan, fetched)
@@ -422,10 +443,11 @@ class ServingEngine:
             io_wait_s=wait_s,
             first_block_s=first_block_s,
             compute_s=compute_s,
-            ttft_s=io_s + compute_s,
+            ttft_s=queue_s + io_s + compute_s,
             hedged=hedged,
             prefetched=prefetched,
             stage=getattr(req, "stage", -1),
+            queue_s=queue_s,
         )
         self.stats.completed += 1
         self.stats.ttfts.append(rec.ttft_s)

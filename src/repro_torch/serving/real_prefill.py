@@ -10,6 +10,11 @@ length it serves is captured up front by ``repro_torch.graphs.capture``
 (one CUDA graph per length on the card, the step itself on the CPU), as
 the reference hook jits its prefill.
 
+Under a request's trace the hook records ``prefill.replay`` (the upload of
+the tokens, the replay and its synchronise: the seconds it returns) and
+``prefill.copy_out`` (the fresh blocks' cast, layout and copy to the host;
+units: the blocks).
+
 Each block keeps the reference's stored layout, so one store can hold
 blocks from either package: ``(block, 2·L·KVH·Dh)`` float16, k then v,
 each the (L, block, KVH, Dh) slab reshaped as numpy's
@@ -27,6 +32,7 @@ import torch
 
 from ..graphs import capture
 from ..models import api
+from ..obs.tracing import maybe_span
 
 
 def fortran_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -63,25 +69,26 @@ def make_real_prefill(cfg, params, block: int, device="cuda", *, lengths) -> Cal
         if step is None:
             raise ValueError(f"a {len(tokens)}-token prompt: the hook serves the lengths it was built for, "
                              f"{sorted(real_prefill.steps)}")
-        t0 = time.perf_counter()
-        with torch.inference_mode():
+        with maybe_span("prefill.replay"), torch.inference_mode():
+            t0 = time.perf_counter()
             toks = torch.tensor(tokens, dtype=torch.int64, device=device)[None, :]
             cache = step(params, {"tokens": toks})  # the step's own cache, read below before its next replay
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
-            real_prefill.calls += 1
-            nb = len(tokens) // block
-            start = reused // block
-            if start >= nb:
-                return [], dt
-            sl = slice(start * block, nb * block)
+        real_prefill.calls += 1
+        nb = len(tokens) // block
+        start = reused // block
+        if start >= nb:
+            return [], dt
+        sl = slice(start * block, nb * block)
+        with maybe_span("prefill.copy_out", units=nb - start), torch.inference_mode():
             # bf16 -> f16 on the device rounds once, as the reference's
             # bf16 -> f32 -> f16 does, and halves the bytes copied out
             k = fortran_blocks(cache["k"][:, 0, sl].to(torch.float16), block)
             v = fortran_blocks(cache["v"][:, 0, sl].to(torch.float16), block)
-            out = torch.cat([k, v], dim=2).cpu().numpy()
-        return list(out), dt
+            out = list(torch.cat([k, v], dim=2).cpu().numpy())
+        return out, dt
 
     real_prefill.calls = 0
     real_prefill.steps = {n: step_of(n) for n in lengths}

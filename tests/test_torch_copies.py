@@ -2,8 +2,14 @@
 (configs, core, cache, runtime, obs, workload, cluster, serving/engine,
 training/data), and ``cluster/node.py`` differs from the reference's only
 in the module it runs.  Each pair is read as bytes and compared; neither
-is imported, so drift in either package shows here."""
+is imported, so drift in either package shows here.
 
+Three of those modules are the port's own, instrumented for its request
+timeline (``obs/tracing.py``, ``serving/engine.py``, ``core/store.py``):
+each keeps the reference module's surface, every public top-level name,
+public method and dataclass field, read from both sources' syntax trees."""
+
+import ast
 from pathlib import Path
 
 import pytest
@@ -16,15 +22,18 @@ def _copied():
     files = []
     for pkg in COPIED_PACKAGES:
         files += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py")
-                        if p.relative_to(REF).as_posix() != NODE)
+                        if p.relative_to(REF).as_posix() not in (NODE, *PORT_OWNED))
     files += ["cache/__init__.py", "cache/radix.py", "cache/hierarchy.py",
-              "obs/__init__.py", "obs/metrics.py", "obs/tracing.py", "obs/catalog.py", "obs/httpd.py",
-              "serving/engine.py", "training/data.py"]
+              "obs/__init__.py", "obs/metrics.py", "obs/catalog.py", "obs/httpd.py",
+              "training/data.py"]
     return files
 
 
 COPIED_PACKAGES = ("configs", "core", "runtime", "workload", "cluster")
 NODE = "cluster/node.py"  # a port: it runs the port's node module, not the reference's
+# the port's own versions of reference modules, instrumented for the request
+# timeline; each keeps the reference's surface (test below)
+PORT_OWNED = ("obs/tracing.py", "serving/engine.py", "core/store.py")
 COPIED = _copied()
 
 
@@ -33,6 +42,42 @@ def test_copy_is_byte_identical(rel):
     ref, port = REF / rel, PORT / rel
     assert port.exists(), f"repro_torch/{rel} is missing"
     assert port.read_bytes() == ref.read_bytes(), f"repro_torch/{rel} drifted from repro/{rel}"
+
+
+def _surface(path: Path) -> set:
+    """Public top-level names, ``Class.method`` of public methods and
+    ``Class.field`` of dataclass fields, from the module's syntax tree."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names = [node.target.id]
+        else:
+            names = []
+        out |= {n for n in names if not n.startswith("_")}
+        if isinstance(node, ast.ClassDef):
+            dataclass = any("dataclass" in ast.unparse(d) for d in node.decorator_list)
+            for item in node.body:
+                if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)) and not item.name.startswith("_"):
+                    out.add(f"{node.name}.{item.name}")
+                elif dataclass and isinstance(item, ast.AnnAssign) and isinstance(item.target, ast.Name):
+                    out.add(f"{node.name}.{item.target.id}")
+    return out
+
+
+@pytest.mark.parametrize("rel", PORT_OWNED)
+def test_port_owned_module_keeps_the_reference_surface(rel):
+    """Every public top-level name, public method and dataclass field of
+    the reference module exists in the port's own version of it."""
+    ref, port = REF / rel, PORT / rel
+    assert port.exists(), f"repro_torch/{rel} is missing"
+    want = _surface(ref)
+    assert want, f"repro/{rel} shows no public surface"
+    missing = want - _surface(port)
+    assert not missing, f"repro_torch/{rel} lacks {sorted(missing)} of repro/{rel}"
 
 
 def test_node_is_the_references_but_for_the_module_it_runs():
@@ -45,16 +90,23 @@ def test_node_is_the_references_but_for_the_module_it_runs():
 
 
 def test_copy_list_covers_the_packages():
-    """Every module of the copied packages is in the list (cluster's node
-    through the test above), and every module of obs is copied, the
-    metric catalog and the HTTP endpoint among them."""
+    """Every module of the copied packages is in the list or port-owned
+    (cluster's node through the test above), every module of obs is
+    copied or port-owned, the metric catalog and the HTTP endpoint copied
+    among them, and the serving engine is port-owned."""
+    owned = set(PORT_OWNED)
+    assert not owned & set(COPIED)
     for pkg in COPIED_PACKAGES:
         ref_files = {p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py")}
         port_files = {p.relative_to(PORT).as_posix() for p in (PORT / pkg).glob("*.py")}
-        assert port_files == ref_files == {f for f in COPIED if f.startswith(pkg + "/")} | ({NODE} & ref_files)
+        listed = {f for f in COPIED + list(PORT_OWNED) if f.startswith(pkg + "/")}
+        assert port_files == ref_files == listed | ({NODE} & ref_files)
     assert len([f for f in COPIED if f.startswith("cluster/")]) == 8
-    assert {p.name for p in (REF / "obs").glob("*.py")} == {p.name for p in (PORT / "obs").glob("*.py")}
+    obs = {p.relative_to(REF).as_posix() for p in (REF / "obs").glob("*.py")}
+    assert obs == {p.relative_to(PORT).as_posix() for p in (PORT / "obs").glob("*.py")}
+    assert obs == {f for f in COPIED + list(PORT_OWNED) if f.startswith("obs/")}
     assert {"obs/catalog.py", "obs/httpd.py"} <= set(COPIED)
+    assert "serving/engine.py" in owned and (PORT / "serving" / "engine.py").exists()
     assert (PORT / "obs" / "catalog.py").exists() and (PORT / "obs" / "httpd.py").exists()
 
 

@@ -35,6 +35,17 @@ def test_run_staged_hits_match_reference(tmp_path, kind):
     assert all(r.mean_ttft_s > 0 for r in got)
 
 
+def test_run_staged_ttft_is_the_service_time(tmp_path):
+    """A stage is submitted at once; its TTFT is each request's service
+    time, I/O plus modeled compute, as the reference's, and leaves out the
+    wait behind the stage's earlier requests that the engine's
+    ``RequestRecord.ttft_s`` includes."""
+    got = serve.run_staged(serve.make_engine(str(tmp_path), "lsm", serve.BenchScale(**SCALE)),
+                           serve.BenchScale(**SCALE))
+    for r in got:
+        assert r.mean_ttft_s == pytest.approx(r.mean_io_s + r.mean_compute_s, rel=1e-9)
+
+
 def test_engine_builder_defaults_and_backends_match_reference(tmp_path):
     s, r = serve.BenchScale(), common.BenchScale()
     assert s.__dict__ == r.__dict__
