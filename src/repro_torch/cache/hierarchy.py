@@ -25,6 +25,20 @@ pipeline them (paper §3.4 batch operations):
 batch committed between plan and fulfill may have grown the tree, and a
 prefetch must never install stale state.
 
+The fetch reads from disk only what ``fulfill`` can install: it skips the
+leading chain blocks the device tier held at plan time
+(``AcquirePlan.device_run``) and gets the rest with one ranged
+``get_batch(tokens, upto, start_block=device_run)``, the full get's
+tail (empty when the disk lost a block below the start), or gets nothing
+when the probe reaches no further.  A streaming backend (the cluster's clients) still
+reads from block 0; only the no-get case applies there.
+A node that left the device between plan and fulfill, spilled to disk,
+is read by ``fulfill`` itself before it installs anything (one ranged
+get; from block 0 on a streaming backend), so every block a from-0 fetch
+would have installed is still installed.
+``CacheStats.fetch_skipped_blocks`` counts the blocks a fetch did not
+read, ``late_read_blocks`` the blocks ``fulfill`` needed and read late.
+
 Compression tiers are invisible here: a block demoted to int8 or
 int8+zlib (``core.tiering``) travels still-encoded through the store and
 over the cluster wire (``LAYOUT_ENCODED`` / vlog chunks) and is decoded
@@ -77,6 +91,8 @@ class CacheStats:
     drops: int = 0
     writeback_blocks: int = 0  # commits handed to the write-behind queue
     plan_stale: int = 0  # prefetch plans that fulfill found outdated
+    fetch_skipped_blocks: int = 0  # device-resident chain blocks a fetch did not read
+    late_read_blocks: int = 0  # blocks fulfill read itself: spilled after the plan
 
     @property
     def hit_rate(self) -> float:
@@ -104,6 +120,7 @@ class AcquirePlan:
     chain_blocks: int  # radix-matched blocks at plan time
     disk_chain_depth: int  # deepest matched node whose data lives only on disk
     total_blocks: int
+    device_run: int = 0  # leading matched nodes in the device tier at plan time
 
     @property
     def need_disk(self) -> bool:
@@ -112,19 +129,23 @@ class AcquirePlan:
 
 @dataclass
 class DiskFetch:
-    """Phase 2 result: the contiguous disk prefix (blocks from index 0).
+    """Phase 2 result: a contiguous run of disk blocks, ``blocks[0]`` being
+    block index ``start_block`` (0 on a streaming backend).
 
     ``blocks`` is either a plain list or a lazy ``_StreamedBlocks`` whose
     tail is still on the wire; ``fulfill`` touches it only through
     ascending indices and slices, so streamed blocks are consumed in
     arrival order.  ``first_block_s`` is the fetch-relative
     time-to-first-block (None when the backend doesn't stream or the
-    fetch was empty)."""
+    fetch was empty).  ``skipped_blocks``: the blocks below
+    ``start_block`` that a fetch from block 0 would have read."""
 
     probed_tokens: int = 0
     blocks: Sequence[np.ndarray] = field(default_factory=list)
     io_s: float = 0.0
     first_block_s: Optional[float] = None
+    start_block: int = 0
+    skipped_blocks: int = 0
 
 
 class _StreamedBlocks:
@@ -281,18 +302,23 @@ class CacheHierarchy:
             B = self.block_size
             chain = self.tree.match_prefix(tokens)
             disk_depth = max((n.depth for n in chain if n.tier == TIER_DISK), default=0)
+            device_run = 0
+            while device_run < len(chain) and chain[device_run].tier == TIER_DEVICE:
+                device_run += 1
             return AcquirePlan(
                 tokens=list(tokens),
                 chain_blocks=len(chain),
                 disk_chain_depth=disk_depth,
                 total_blocks=len(tokens) // B,
+                device_run=device_run,
             )
 
     def fetch(self, plan: AcquirePlan) -> DiskFetch:
         """Phase 2 (any thread): backend probe + one batched get covering
         both the disk extension beyond the radix chain and the chain nodes
-        whose payloads live only on disk.  Touches nothing but the
-        thread-safe store.
+        whose payloads live only on disk, from the first chain block the
+        device did not hold at plan time; no get when the probe reaches no
+        further than that.  Touches nothing but the thread-safe store.
 
         On a streaming backend (one exposing ``get_batch_stream``) this
         returns as soon as block 0 is on hand: the tail keeps arriving
@@ -314,11 +340,23 @@ class CacheHierarchy:
         upto = max(probed, plan.disk_chain_depth * B)
         if not upto:
             return DiskFetch(io_s=time.perf_counter() - t0)
+        start = plan.device_run  # fulfill installs nothing from these blocks
+        if upto <= start * B:
+            return DiskFetch(
+                probed_tokens=probed,
+                io_s=time.perf_counter() - t0,
+                start_block=start,
+                skipped_blocks=upto // B,
+            )
         stream_fn = getattr(self.store, "get_batch_stream", None)
         if stream_fn is None:
-            blocks = self.store.get_batch(plan.tokens, upto)
+            blocks = self.store.get_batch(plan.tokens, upto, start_block=start)
             return DiskFetch(
-                probed_tokens=probed, blocks=blocks, io_s=time.perf_counter() - t0
+                probed_tokens=probed,
+                blocks=blocks,
+                io_s=time.perf_counter() - t0,
+                start_block=start,
+                skipped_blocks=start,
             )
         try:
             streamed = _StreamedBlocks(stream_fn(plan.tokens, upto))
@@ -352,6 +390,8 @@ class CacheHierarchy:
         chain = self.tree.match_prefix(tokens)
         if len(chain) != plan.chain_blocks:
             self.stats.plan_stale += 1
+        self.stats.fetch_skipped_blocks += fetched.skipped_blocks
+        blocks, base = self._late_read(tokens, chain, fetched)
         dev = host = disk = 0
 
         # classify memory-resident part
@@ -369,7 +409,7 @@ class CacheHierarchy:
         for n in chain:
             if n.tier != TIER_DISK:
                 continue
-            blk = _block_at(fetched.blocks, n.depth - 1)
+            blk = _block_at(blocks, n.depth - 1 - base)
             if blk is not None:
                 n.data = blk
             else:  # disk lost it (eviction) or the plan predates it: miss
@@ -380,7 +420,7 @@ class CacheHierarchy:
         # blocks (this slice drains the rest of a streamed fetch)
         disk_ext_blocks: List[np.ndarray] = []
         if fetched.probed_tokens > len(chain) * B:
-            disk_ext_blocks = list(fetched.blocks[len(chain) :])
+            disk_ext_blocks = list(blocks[len(chain) - base :])
             disk += len(disk_ext_blocks)
         abort = getattr(fetched.blocks, "close", None)
         if abort is not None:
@@ -432,6 +472,36 @@ class CacheHierarchy:
             disk_tokens=disk * B,
             io_s=io_s,
         )
+
+    def _late_read(
+        self, tokens: Sequence[int], chain: List[RadixNode], fetched: DiskFetch
+    ) -> Tuple[Sequence[np.ndarray], int]:
+        """The fetched run and the block index of its first block, extended
+        down to the lowest block ``fulfill`` needs below the fetch's start:
+        a chain node on disk that the plan saw on the device, or an
+        extension from a chain that shrank since.  Those blocks are read
+        here, before anything is installed: one ranged get, or a get from
+        block 0 on a streaming backend, whose fetch starts at block 0 and so
+        needs none unless it got nothing."""
+        B = self.block_size
+        base = fetched.start_block
+        need = [n.depth - 1 for n in chain[:base] if n.tier == TIER_DISK]
+        if fetched.probed_tokens > len(chain) * B and len(chain) < base:
+            need.append(len(chain))
+        if not need:
+            return fetched.blocks, base
+        lo = min(need)
+        if getattr(self.store, "get_batch_stream", None) is None:
+            late = self.store.get_batch(tokens, base * B, start_block=lo)
+        else:  # a read from block 0; a lost replica set is a miss
+            try:
+                late = list(self.store.get_batch(tokens, base * B))[lo:]
+            except (ConnectionError, OSError):
+                late = []
+        self.stats.late_read_blocks += len(late)
+        if len(late) < base - lo:  # a hole below the fetched run ends it
+            return late, lo
+        return list(late) + list(fetched.blocks), lo
 
     def acquire(self, tokens: Sequence[int]) -> Acquisition:
         """Longest-prefix reuse: radix match, disk-probe extension, and

@@ -11,12 +11,19 @@ The contract (paper §3.2, Fig. 6):
 
     put_batch(tokens, blocks, start_block, skip_existing) -> n_written
     probe(tokens) -> n_tokens        longest *contiguous* cached prefix
-    get_batch(tokens, n_tokens)      blocks covering tokens[:n_tokens]
+    get_batch(tokens, n_tokens,      get_batch(tokens, n_tokens)[start_block:]:
+              start_block=0)         the blocks covering tokens[:n_tokens]
+                                     from start_block on; it reads and
+                                     decodes only those blocks
     probe_many / get_many / put_many multi-sequence forms (a sharded
                                      backend fans these out in parallel)
     maintenance(compact_steps)       one scheduled maintenance cycle
     flush() / close()                durability / lifecycle
     stats / disk_bytes / file_count  observability
+
+The cluster's clients (``cluster.client``, ``cluster.cluster_store``)
+read from block 0: their ``get_batch`` and ``get_batch_stream`` take no
+``start_block``, and the cache hierarchy streams from them instead.
 
 Optional fast-path methods (duck-typed; the cluster server probes with
 ``getattr`` and falls back to ``get_batch``):
@@ -102,7 +109,9 @@ class StorageBackend(Protocol):
 
     def probe(self, tokens: Sequence[int]) -> int: ...
 
-    def get_batch(self, tokens: Sequence[int], n_tokens: int) -> List[np.ndarray]: ...
+    def get_batch(
+        self, tokens: Sequence[int], n_tokens: int, start_block: int = 0
+    ) -> List[np.ndarray]: ...
 
     def probe_many(self, seqs: Sequence[Sequence[int]]) -> List[int]: ...
 

@@ -197,7 +197,9 @@ class FilePerObjectStore(BatchOpsMixin):
         return lo * B
 
     @_locked
-    def get_batch(self, tokens, n_tokens: int) -> List[np.ndarray]:
+    def get_batch(self, tokens, n_tokens: int, start_block: int = 0) -> List[np.ndarray]:
+        """``get_batch(tokens, n_tokens)[start_block:]``: the blocks below
+        the start are checked, not read."""
         B = self.block_size
         t0 = time.perf_counter()
         out: List[np.ndarray] = []
@@ -206,9 +208,10 @@ class FilePerObjectStore(BatchOpsMixin):
             self._charge_meta()
             if not os.path.exists(path):
                 break
-            with open(path, "rb") as f:  # open/read/close per object
-                out.append(BatchCodec.decode(f.read()))
-            self._touch(path)
+            if i >= start_block:
+                with open(path, "rb") as f:  # open/read/close per object
+                    out.append(BatchCodec.decode(f.read()))
+                self._touch(path)
         self.stats.get_blocks += len(out)
         self.stats.get_tokens += len(out) * B
         self.stats.io_read_s += time.perf_counter() - t0
@@ -316,7 +319,9 @@ class MemoryOnlyStore(BatchOpsMixin):
         return lo * B
 
     @_locked
-    def get_batch(self, tokens, n_tokens: int) -> List[np.ndarray]:
+    def get_batch(self, tokens, n_tokens: int, start_block: int = 0) -> List[np.ndarray]:
+        """``get_batch(tokens, n_tokens)[start_block:]``: the blocks below
+        the start are checked, not read."""
         B = self.block_size
         out: List[np.ndarray] = []
         for i in range(n_tokens // B):
@@ -324,8 +329,9 @@ class MemoryOnlyStore(BatchOpsMixin):
             blk = self._lru.get(key)
             if blk is None:
                 break
-            self._lru.move_to_end(key)
-            out.append(blk)
+            if i >= start_block:
+                self._lru.move_to_end(key)
+                out.append(blk)
         self.stats.get_blocks += len(out)
         self.stats.get_tokens += len(out) * B
         return out

@@ -182,8 +182,10 @@ class ShardedKVBlockStore:
     def probe(self, tokens: Sequence[int]) -> int:
         return self.shard_for(tokens).probe(tokens)
 
-    def get_batch(self, tokens: Sequence[int], n_tokens: int) -> List[np.ndarray]:
-        return self.shard_for(tokens).get_batch(tokens, n_tokens)
+    def get_batch(
+        self, tokens: Sequence[int], n_tokens: int, start_block: int = 0
+    ) -> List[np.ndarray]:
+        return self.shard_for(tokens).get_batch(tokens, n_tokens, start_block=start_block)
 
     def get_batch_raw(self, tokens: Sequence[int], n_tokens: int):
         """Sendfile-able extent for the sequence, if its shard has one

@@ -359,17 +359,22 @@ class KVBlockStore(BatchOpsMixin):
         return k
 
     # ------------------------------------------------------------------- get
-    def get_batch(self, tokens: Sequence[int], n_tokens: int) -> List[np.ndarray]:
-        """Load the cached blocks covering ``tokens[:n_tokens]``: one index
-        range scan, then a coalesced batch read from the tensor log.  Traced
-        as ``store.scan``, ``store.read`` and ``store.decode`` (units: the
-        blocks read and decoded), once each a call."""
+    def get_batch(
+        self, tokens: Sequence[int], n_tokens: int, start_block: int = 0
+    ) -> List[np.ndarray]:
+        """Load the cached blocks covering ``tokens[:n_tokens]``, from block
+        index ``start_block`` on: ``get_batch(tokens, n_tokens)[start_block:]``.
+        One index range scan finds the contiguous cached run from block 0;
+        a coalesced batch read from the tensor log then reads and decodes
+        only its blocks from ``start_block`` on.  Traced as ``store.scan``,
+        ``store.read`` and ``store.decode`` (units: the blocks read and
+        decoded), once each a call."""
         B = self.block_size
         n_blocks = n_tokens // B
-        if n_blocks == 0:
+        if n_blocks <= start_block:
             return []
         t0 = time.perf_counter()
-        blocks: List[Optional[np.ndarray]] = [None] * n_blocks
+        out: List[np.ndarray] = []
         # Optimistic lock-free read: resolve pointers, read payloads with no
         # lock held.  If FIFO eviction or the merge service removed a log
         # file between the scan and the read (FileNotFoundError), re-resolve
@@ -383,25 +388,19 @@ class KVBlockStore(BatchOpsMixin):
         for _attempt in range(3):
             with maybe_span("store.scan"):
                 ptrs = self._scan_block_ptrs(tokens, n_blocks)
-            present = [(i, p) for i, p in enumerate(ptrs) if p is not None]
-            blocks = [None] * n_blocks
-            if not present:
+            # only the contiguous prefix is usable as KV cache
+            run = ptrs.index(None) if None in ptrs else n_blocks
+            wanted = ptrs[start_block:run]
+            if not wanted:
                 break
             try:
-                with maybe_span("store.read", units=len(present)):
-                    recs = self.log.read_batch([p for _, p in present])
+                with maybe_span("store.read", units=len(wanted)):
+                    recs = self.log.read_batch(wanted)
             except FileNotFoundError:
                 continue  # lost the race with eviction/merge: retry
             with maybe_span("store.decode", units=len(recs)):
-                for (i, _), (_, payload) in zip(present, recs):
-                    blocks[i] = BatchCodec.decode(payload)
+                out = [BatchCodec.decode(payload) for _, payload in recs]
             break
-        # only the contiguous prefix is usable as KV cache
-        out: List[np.ndarray] = []
-        for b in blocks:
-            if b is None:
-                break
-            out.append(b)
         with self._stats_lock:
             self.stats.get_blocks += len(out)
             self.stats.get_tokens += len(out) * B

@@ -4,7 +4,7 @@ reference's node), the node serves with ``jax``, ``repro`` and ``torch``
 unimportable, its ``--metrics-port`` answers with Prometheus text, a trace
 id set in the port's client reaches the node's scrape, a dead node scrapes
 as unreachable, and the port's metric catalog names what the reference's
-does."""
+does, and the port's two cache-fetch counters besides."""
 
 import os
 import subprocess
@@ -26,9 +26,15 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 BLOCKED = ("jax", "jaxlib", "repro", "torch")
 
 
+# ``CacheStats`` fields of the port's own cache hierarchy, bridged like the rest
+PORT_GAUGES = ["repro_cache_fetch_skipped_blocks", "repro_cache_late_read_blocks"]
+
+
 def test_the_catalog_names_what_the_references_does():
-    assert catalog.all_names() == ref_catalog.all_names()
-    assert catalog.catalog() == ref_catalog.catalog()
+    assert catalog.all_names() == sorted(ref_catalog.all_names() + PORT_GAUGES)
+    want = ref_catalog.catalog()
+    want["gauges"] = sorted(want["gauges"] + PORT_GAUGES)
+    assert catalog.catalog() == want
     assert [p for p, _ in catalog.stats_bridges()] == [p for p, _ in ref_catalog.stats_bridges()]
     assert all(cls.__module__.startswith("repro_torch.") for _, cls in catalog.stats_bridges())
 

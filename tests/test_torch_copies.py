@@ -4,9 +4,12 @@ training/data), and ``cluster/node.py`` differs from the reference's only
 in the module it runs.  Each pair is read as bytes and compared; neither
 is imported, so drift in either package shows here.
 
-Three of those modules are the port's own, instrumented for its request
-timeline (``obs/tracing.py``, ``serving/engine.py``, ``core/store.py``):
-each keeps the reference module's surface, every public top-level name,
+Seven of those modules are the port's own: three instrumented for its
+request timeline (``obs/tracing.py``, ``serving/engine.py``,
+``core/store.py``), and the cache hierarchy's fetch with the ranged get
+beneath it (``cache/hierarchy.py``, ``core/backend.py``,
+``core/sharded_store.py``, ``core/baselines.py``; ``core/store.py`` too).
+Each keeps the reference module's surface, every public top-level name,
 public method and dataclass field, read from both sources' syntax trees."""
 
 import ast
@@ -23,7 +26,7 @@ def _copied():
     for pkg in COPIED_PACKAGES:
         files += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py")
                         if p.relative_to(REF).as_posix() not in (NODE, *PORT_OWNED))
-    files += ["cache/__init__.py", "cache/radix.py", "cache/hierarchy.py",
+    files += ["cache/__init__.py", "cache/radix.py",
               "obs/__init__.py", "obs/metrics.py", "obs/catalog.py", "obs/httpd.py",
               "training/data.py"]
     return files
@@ -31,9 +34,11 @@ def _copied():
 
 COPIED_PACKAGES = ("configs", "core", "runtime", "workload", "cluster")
 NODE = "cluster/node.py"  # a port: it runs the port's node module, not the reference's
-# the port's own versions of reference modules, instrumented for the request
-# timeline; each keeps the reference's surface (test below)
-PORT_OWNED = ("obs/tracing.py", "serving/engine.py", "core/store.py")
+# the port's own versions of reference modules: the request timeline's
+# instrumentation, and the fetch that skips device-resident blocks with the
+# ranged get beneath it; each keeps the reference's surface (test below)
+PORT_OWNED = ("obs/tracing.py", "serving/engine.py", "core/store.py", "cache/hierarchy.py",
+              "core/backend.py", "core/sharded_store.py", "core/baselines.py")
 COPIED = _copied()
 
 

@@ -62,8 +62,8 @@ def serve(root, hook, tracing: bool):
     got = {}
     get_batch = store.get_batch
 
-    def counted(tokens, n_tokens):
-        out = get_batch(tokens, n_tokens)
+    def counted(tokens, n_tokens, start_block=0):
+        out = get_batch(tokens, n_tokens, start_block=start_block)
         tr = current_trace()
         if tr is not None:
             got[tr.trace_id] = got.get(tr.trace_id, 0) + len(out)
@@ -119,18 +119,27 @@ def test_engine_thread_spans_and_the_hooks_under_compute(runs):
 
 
 def test_fetch_and_the_store_spans_run_on_an_io_thread_under_fetch(runs):
+    """Every request's fetch probes and reads on an I/O thread, its store
+    spans under it; the fetch skips the blocks the device held at plan
+    time.  A block spilled after the plan is read late, under ``fulfill``
+    on the engine thread."""
     eng, recs, hits, _ = runs[True]
     main = threading.get_ident()
     assert hits["tokens_hit_disk"] > 0  # some prefixes came back from disk
+    assert eng.h.stats.fetch_skipped_blocks > 0
     for r in recs:
         tr = eng.traces.get(r.rid)
         fetches = {s.sid: s for s in by_name(tr, "fetch")}
+        (fulfill,) = by_name(tr, "fulfill")
         assert fetches and all(f.thread != main and f.thread_name.startswith("repro-io") for f in fetches.values())
         for name in ("store.probe", "store.scan", "store.read", "store.decode"):
             spans = by_name(tr, name)
-            assert spans, (r.rid, name)
+            assert any(sp.parent in fetches for sp in spans), (r.rid, name)
             for sp in spans:
-                assert sp.parent in fetches and sp.thread == fetches[sp.parent].thread, (r.rid, sp)
+                if sp.parent == fulfill.sid:
+                    assert name != "store.probe" and sp.thread == main, (r.rid, sp)
+                else:
+                    assert sp.parent in fetches and sp.thread == fetches[sp.parent].thread, (r.rid, sp)
         assert all(sp.units and sp.units > 0 for sp in by_name(tr, "store.read") + by_name(tr, "store.decode"))
 
 
