@@ -1,5 +1,6 @@
 """A cell of ``BENCHMARK.json`` resolved by name to its files: the
-configuration (``configs[].file``), the traffic mix
+configuration (``configs[].file``) with its architecture module
+(``kvbench/arch/<arch>.py``), the traffic mix
 (``kvbench/traffic/<traffic>.json``), its correctness limits
 (``kvbench/limits/<cell>.json``) and its metrics (each a reader
 ``kvbench/metrics/<metric>.py``)."""
@@ -11,7 +12,10 @@ import importlib
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
+
+from . import arch as archmod
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -27,6 +31,11 @@ class Cell:
     end_to_end: List[str]
     per_layer: List[str]
     units: Dict[str, str]
+
+    @property
+    def arch(self) -> ModuleType:
+        """The configuration's architecture module."""
+        return archmod.of(self.config)
 
 
 def load_json(path: Path) -> Dict:

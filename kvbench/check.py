@@ -1,12 +1,13 @@
 """The comparison that decides ``correct``: what the timed path produced,
-held against the plain reference (``kvbench/reference.py``) run once the
-window has closed, on the same weights and token ids.
+held against the plain reference (the architecture module's ``forward``,
+``kvbench/arch/``) run once the window has closed, on the same weights and
+token ids.
 
-KV blocks (the ``engine_loop`` runner).  A block as the program stores it is
-``(block, 2·L·KVH·Dh)`` float16: k then v, each the (L, block, KVH, Dh) slab
-reshaped as numpy's ``reshape(block, -1, order="F")`` does.  For every
-sampled request and every layer, k and v apart, the number is
-``max|program − reference| / max|reference|`` over that layer's slab of
+KV blocks (the ``engine_loop`` runner).  The architecture module reads a
+block back from the layout the program stores (``unpack_blocks``) into the
+parts of each layer's state (k and v for GQA).  For every sampled request,
+every layer and every part apart, the number is
+``max|program − reference| / max|reference|`` over that layer's part of
 the request's blocks:
 
   kv_fresh_err     the blocks the prefill hook handed to the cache (and so
@@ -35,33 +36,10 @@ each the largest over the sample.
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
-
-from . import reference
-
-F32 = torch.float32
-
-
-def unpack_blocks(blocks: List, L: int, KVH: int, Dh: int, device) -> Optional[Dict[str, torch.Tensor]]:
-    """Stored blocks -> {"k", "v"}: (L, n·block, KVH, Dh) f32 on ``device``;
-    None where a block is missing (no data) or not of the stored shape."""
-    half = L * KVH * Dh
-    if any(b is None or np.ndim(b) != 2 or np.shape(b)[1] != 2 * half for b in blocks):
-        return None
-    if not blocks:
-        empty = torch.empty((L, 0, KVH, Dh), dtype=F32, device=device)
-        return {"k": empty, "v": empty}
-    x = torch.from_numpy(np.stack([np.asarray(b, dtype=np.float16) for b in blocks])).to(device, F32)
-    n, blk = x.shape[:2]
-    out = {}
-    for j, name in enumerate(("k", "v")):
-        # a block's slab is (block, L·KVH·Dh) in Fortran order over (L, block, KVH, Dh)
-        slab = x[:, :, j * half:(j + 1) * half].transpose(1, 2).reshape(n, Dh, KVH, blk, L)
-        out[name] = slab.permute(4, 0, 3, 2, 1).reshape(L, n * blk, KVH, Dh)
-    return out
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -72,14 +50,13 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def kv_numbers(params: Dict, model: Dict, samples: List[Dict], block: int, device,
+def kv_numbers(arch: ModuleType, params: Dict, model: Dict, samples: List[Dict], block: int, device,
                control: bool = False) -> Dict[str, Dict[str, float]]:
     """``samples``: dicts with ``tokens`` (the prompt), ``reused`` (tokens the
     program took from the cache), ``fresh`` (the hook's blocks) and
     ``promoted`` (the cache's blocks of the reused prefix).  Returns
     {"program": numbers} and, with ``control``, {"control": numbers} of the
     reference in fp8 put in the program's place."""
-    L, KVH, Dh = model["n_layers"], model["n_kv_heads"], model["d_head"]
     out = {"program": {"kv_fresh_err": 0.0, "kv_promoted_err": 0.0}}
     if not samples:
         out["program"] = {"kv_fresh_err": math.inf, "kv_promoted_err": math.inf}
@@ -91,35 +68,37 @@ def kv_numbers(params: Dict, model: Dict, samples: List[Dict], block: int, devic
     progs = []
     for s in samples:
         start, nb = s["reused"] // block, S // block
-        fresh = unpack_blocks(s["fresh"], L, KVH, Dh, device) if len(s["fresh"]) == nb - start else None
-        prom = unpack_blocks(s["promoted"], L, KVH, Dh, device) if len(s["promoted"]) == start else None
+        fresh = arch.unpack_blocks(s["fresh"], model, device) if len(s["fresh"]) == nb - start else None
+        prom = arch.unpack_blocks(s["promoted"], model, device) if len(s["promoted"]) == start else None
         progs.append((start * block, nb * block, fresh, prom))
     num = out["program"]
-    kept: List = [None] * L if control else None
+    kept: List = [None] * model["n_layers"] if control else None
 
-    def compare(i, k, v):
+    def compare(i, parts):
         for b, (r0, r1, fresh, prom) in enumerate(progs):
-            for name, ref in (("k", k[b]), ("v", v[b])):
+            for name, x in parts.items():
+                ref = x[b]
                 num["kv_fresh_err"] = max(num["kv_fresh_err"], math.inf if fresh is None
                                           else rel_err(fresh[name][i], ref[r0:r1]))
                 num["kv_promoted_err"] = max(num["kv_promoted_err"], math.inf if prom is None
                                              else rel_err(prom[name][i], ref[:r0]))
         if kept is not None:
-            kept[i] = (k.clone(), v.clone())
+            kept[i] = {name: x.clone() for name, x in parts.items()}
 
-    reference.forward(params, model, tokens, on_kv=compare)
+    arch.forward(params, model, tokens, on_state=compare)
     if control:
         ctl = {"kv_fresh_err": 0.0, "kv_promoted_err": 0.0}
 
-        def compare_ctl(i, k, v):
-            rk, rv = kept[i]
+        def compare_ctl(i, parts):
+            refs = kept[i]
             for b, (r0, r1, _, _) in enumerate(progs):
-                for x, ref in ((k[b], rk[b]), (v[b], rv[b])):
-                    ctl["kv_fresh_err"] = max(ctl["kv_fresh_err"], rel_err(x[r0:r1], ref[r0:r1]))
-                    ctl["kv_promoted_err"] = max(ctl["kv_promoted_err"], rel_err(x[:r0], ref[:r0]))
+                for name, x in parts.items():
+                    xb, ref = x[b], refs[name][b]
+                    ctl["kv_fresh_err"] = max(ctl["kv_fresh_err"], rel_err(xb[r0:r1], ref[r0:r1]))
+                    ctl["kv_promoted_err"] = max(ctl["kv_promoted_err"], rel_err(xb[:r0], ref[:r0]))
             kept[i] = None
 
-        reference.forward(params, model, tokens, precision="fp8", on_kv=compare_ctl)
+        arch.forward(params, model, tokens, precision="fp8", on_state=compare_ctl)
         out["control"] = ctl
     return out
 
@@ -131,7 +110,7 @@ def _gap(ref_logits: torch.Tensor, served: torch.Tensor) -> torch.Tensor:
     return (best - got) / ref_logits.std(-1)
 
 
-def decode_numbers(params: Dict, model: Dict, samples: List[Dict], device,
+def decode_numbers(arch: ModuleType, params: Dict, model: Dict, samples: List[Dict], device,
                    control: bool = False) -> Dict[str, Dict[str, float]]:
     """``samples``: dicts with ``prompt``, ``fed`` (the tokens fed to the decode
     steps, the first the prefill's argmax), ``served`` (every served token:
@@ -143,7 +122,7 @@ def decode_numbers(params: Dict, model: Dict, samples: List[Dict], device,
     P, n = len(samples[0]["prompt"]), len(samples[0]["fed"])
     tokens = torch.tensor([s["prompt"] + s["fed"] for s in samples], dtype=torch.long, device=device)
     at = list(range(P - 1, P + n))  # the prefill's last position, then each fed token's
-    ref = reference.forward(params, model, tokens, logits_at=at)  # (B, n + 1, V)
+    ref = arch.forward(params, model, tokens, logits_at=at)  # (B, n + 1, V)
     std = ref.std(-1)
     gap, lerr = 0.0, 0.0
     for b, s in enumerate(samples):
@@ -154,7 +133,7 @@ def decode_numbers(params: Dict, model: Dict, samples: List[Dict], device,
         lerr = max(lerr, float(((s["logits"].to(device) - ref[b, 1:]).abs().max(-1).values / std[b, 1:]).max()))
     out["program"] = {"decode_gap": gap, "decode_logit_err": lerr}
     if control:
-        low = reference.forward(params, model, tokens, logits_at=at, precision="fp8")
+        low = arch.forward(params, model, tokens, logits_at=at, precision="fp8")
         served = low.argmax(-1)
         out["control"] = {
             "decode_gap": float(max(_gap(ref[b], served[b]).max() for b in range(len(samples)))),

@@ -3,10 +3,10 @@ kernel, no cache, no batching across requests beyond a stacked batch of
 equal-length prompts.  It imports nothing of the program.
 
 It follows the configuration file as run (``kvbench/configs/<config>.json``,
-its ``model`` object) and the weights' layout that ``kvbench/weights.py``
-makes: a pre-norm decoder block (RMSNorm, GQA attention with RoPE on the
-two halves of each head, optional QK-norm and q/k/v bias, SwiGLU MLP),
-untied embedding and output head.
+its ``model`` object) and the weights' layout of
+``kvbench/arch/dense_gqa.py``: a pre-norm decoder block (RMSNorm, GQA
+attention with RoPE on the two halves of each head, optional QK-norm and
+q/k/v bias, SwiGLU MLP), untied embedding and output head.
 
 ``precision="fp8"`` is the control: every matrix product's operands are
 rounded to float8 e4m3 (weights by output channel, activations by row,

@@ -63,7 +63,7 @@ class Context:
 
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.control = device, control
-        self.traffic, self.model = cell.traffic, cell.config["model"]
+        self.traffic, self.model, self.arch = cell.traffic, cell.config["model"], cell.arch
         self.port_cfg = port_config(cell.config)
         self.phases = Phases()
         self.generator = cellmod.generator
@@ -101,20 +101,16 @@ class Context:
 def port_config(config: Dict):
     """The program's ModelConfig the file runs: the port's registered
     config (its smoke variant where the file says so) with the file's
-    overrides, checked against the file's ``model`` object."""
+    overrides, checked by the file's architecture module against the
+    file's ``model`` object."""
     import dataclasses
 
+    from kvbench import arch
     from repro_torch.configs import get_config
 
     cfg = get_config(config["port_config"], smoke=bool(config.get("smoke", False)))
     cfg = dataclasses.replace(cfg, **config.get("port_overrides", {}))
-    m = config["model"]
-    for key in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab_size",
-                "qk_norm", "qkv_bias", "rope_theta"):
-        if getattr(cfg, key) != m[key]:
-            raise ValueError(f"{config['name']}: the program runs {key}={getattr(cfg, key)}, the file says {m[key]}")
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.dtype != "bfloat16":
-        raise ValueError(f"{config['name']}: the harness's reference is a dense GQA decoder in bf16")
+    arch.of(config).check_config(cfg, config)
     return cfg
 
 
@@ -199,7 +195,7 @@ def main(argv=None) -> int:
         print(f"kvbench: the program is not here: {e}", file=sys.stderr)
         return 2
     t = time.perf_counter()
-    _build.build_all(["flash_attention", "decode_attention"])
+    _build.build_all(list(cell.arch.KERNELS))
     build_s = time.perf_counter() - t
 
     out = run_cell(cell, a.seed, a.seconds, bool(a.trace), device, control=bool(a.control))

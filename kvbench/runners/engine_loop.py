@@ -25,7 +25,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .. import check, procio, roofline, trace, weights
+from .. import check, procio, trace, weights
 
 BLOCK = 16
 N_SHARDS = 4
@@ -55,7 +55,7 @@ def run(ctx) -> Dict:
     phases = ctx.phases
 
     with phases.timed("weights"):
-        params = weights.make(model, ctx.seed, dev)
+        params = weights.make(ctx.arch, model, ctx.seed, dev)
     with phases.timed("capture"):
         hook = make_real_prefill(ctx.port_cfg, params, BLOCK, dev, lengths=(S,))
     hook = ctx.fault("hook", hook)
@@ -123,7 +123,7 @@ def run(ctx) -> Dict:
 
     done, samples = window["requests"], window.pop("samples")
     t_check = time.perf_counter()
-    nums = check.kv_numbers(params, model, samples, BLOCK, dev, control=ctx.control)
+    nums = check.kv_numbers(ctx.arch, params, model, samples, BLOCK, dev, control=ctx.control)
     check_s = time.perf_counter() - t_check
     # every request of the window, not only the sample: its reuse as built,
     # and each block it took back present
@@ -131,8 +131,8 @@ def run(ctx) -> Dict:
     nums["program"]["blocks_missing"] = float(sum(r["missing"] for r in done))
     if "control" in nums:
         nums["control"].update(reuse_mismatches=0.0, blocks_missing=0.0)
-    window.update(numbers=nums["program"], control=nums.get("control"), prefill_flops=roofline.prefill_flops(model, S),
-                  flash_call=roofline.flash_call(model, S), sampled=len(samples), check_s=check_s)
+    window.update(numbers=nums["program"], control=nums.get("control"), prefill_flops=ctx.arch.prefill_flops(model, S),
+                  flash_call=ctx.arch.flash_call(model, S), sampled=len(samples), check_s=check_s)
     return window
 
 
@@ -213,7 +213,7 @@ def _window(ctx, eng, gen, taken, made, fetch_s, spans) -> Dict:
         "window_s": ctx.seconds, "requests": done, "samples": samples, "late": late,
         "cache": _delta(cache1, cache0, CACHE_FIELDS), "commit": _delta(commit1, commit0, COMMIT_FIELDS),
         "wchar": None if w0 is None or w1 is None else w1 - w0,
-        "block_bytes": BLOCK * 2 * model["n_layers"] * model["n_kv_heads"] * model["d_head"] * 2,
+        "block_bytes": ctx.arch.block_bytes(model, BLOCK),
         "fetch_s": [d for t, d in fetch_s if t0 <= t <= t_end],
         "profile": None if prof is None else prof.summary(),
     }

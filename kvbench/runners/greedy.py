@@ -30,7 +30,7 @@ def run(ctx) -> Dict:
     P, n = gen.prompt_len, gen.output_tokens
     phases = ctx.phases
     with phases.timed("weights"):
-        params = weights.make(model, ctx.seed, dev)
+        params = weights.make(ctx.arch, model, ctx.seed, dev)
     with phases.timed("capture"):
         steps = make_greedy_steps(ctx.port_cfg, params, P, n, dev)
 
@@ -85,14 +85,14 @@ def run(ctx) -> Dict:
     rng = np.random.default_rng(ctx.seed)
     pick = sorted(rng.choice(len(done), size=min(tr["sample"], len(done)), replace=False).tolist()) if done else []
     t_check = time.perf_counter()
-    nums = check.decode_numbers(params, model, [done[i] for i in pick], dev, control=ctx.control)
+    nums = check.decode_numbers(ctx.arch, params, model, [done[i] for i in pick], dev, control=ctx.control)
     check_s = time.perf_counter() - t_check
     kv0 = P + 1  # the first decode step attends over the prompt and its own token
-    step_bounds = [roofline.bound_s(*roofline.decode_step(model, kv0 + i))[0] for i in range(n)]
+    step_bounds = [roofline.bound_s(*ctx.arch.decode_step(model, kv0 + i))[0] for i in range(n)]
     paged = None
     profile = None if prof is None else prof.summary()
     if profile is not None:
-        paged = sum(roofline.bound_s(*roofline.paged_decode_call(model, kv0 + i % n))[0]
+        paged = sum(roofline.bound_s(*ctx.arch.paged_decode_call(model, kv0 + i % n))[0]
                     for i in range(s0, s1)) * model["n_layers"]
     return {
         "window_s": ctx.seconds, "memory_peak_bytes": peak, "late": 1,

@@ -1,27 +1,22 @@
 """Cells at test size for the CPU: the configured models cut to a test's
-widths under traffic of the cells' shapes, small enough for a test run.
-``smoke`` is the program's own smoke variant (``get_config(...,
-smoke=True)``: 2 layers, d_model 64); ``control`` is deeper and wider (16
-layers, d_model 256), where the fp8 control's error grows as it does over
-a full model's depth, so that the cells' limits can tell it apart."""
+widths (their architecture module's ``TEST_SIZES``) under traffic of the
+cells' shapes, small enough for a test run.  ``smoke`` is the program's
+own smoke variant (``get_config(..., smoke=True)``); ``control`` is deeper
+and wider, where the fp8 control's error grows as it does over a full
+model's depth, so that the cells' limits can tell it apart."""
 
 from __future__ import annotations
 
 import copy
 from typing import Dict, Optional
 
+from kvbench import arch
 from kvbench import cell as cellmod
-
-WIDTHS = {"n_heads": 4, "n_kv_heads": 2}
-SIZES = {
-    "smoke": {"n_layers": 2, "d_model": 64, "d_head": 16, "d_ff": 128, "vocab_size": 256},
-    "control": {"n_layers": 16, "d_model": 256, "d_head": 64, "d_ff": 512, "vocab_size": 2048},
-}
 
 
 def smoke_config(name: str, size: str = "smoke") -> Dict:
     conf = copy.deepcopy(cellmod.load_json(cellmod.HERE / "configs" / f"{name}.json"))
-    widths = {**WIDTHS, **SIZES[size]}
+    widths = arch.of(conf).TEST_SIZES[size]
     if size == "smoke":
         conf["smoke"] = True
     else:

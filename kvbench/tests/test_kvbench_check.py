@@ -8,6 +8,11 @@ import pytest
 import torch
 
 from kvbench import check
+from kvbench.arch import dense_gqa
+
+
+def dims(L, KVH, Dh):
+    return {"n_layers": L, "n_kv_heads": KVH, "d_head": Dh}
 
 
 def test_unpack_inverts_the_programs_block_layout():
@@ -17,7 +22,7 @@ def test_unpack_inverts_the_programs_block_layout():
     g = torch.Generator().manual_seed(0)
     k, v = torch.randn(L, T, KVH, Dh, generator=g), torch.randn(L, T, KVH, Dh, generator=g)
     stored = torch.cat([fortran_blocks(k.half(), blk), fortran_blocks(v.half(), blk)], dim=2).numpy()
-    got = check.unpack_blocks(list(stored), L, KVH, Dh, "cpu")
+    got = dense_gqa.unpack_blocks(list(stored), dims(L, KVH, Dh), "cpu")
     assert torch.equal(got["k"], k.half().float()) and torch.equal(got["v"], v.half().float())
     # numpy's own Fortran-order reshape of one slab, as the layout is defined
     slab = k.half().numpy()[:, 16:32].reshape(blk, -1, order="F")
@@ -26,9 +31,10 @@ def test_unpack_inverts_the_programs_block_layout():
 
 def test_unpack_refuses_missing_or_misshapen_blocks():
     ok = np.zeros((16, 2 * 3 * 2 * 8), np.float16)
-    assert check.unpack_blocks([ok, None], 3, 2, 8, "cpu") is None
-    assert check.unpack_blocks([ok[:, :10]], 3, 2, 8, "cpu") is None
-    assert check.unpack_blocks([], 3, 2, 8, "cpu")["k"].shape == (3, 0, 2, 8)
+    m = dims(3, 2, 8)
+    assert dense_gqa.unpack_blocks([ok, None], m, "cpu") is None
+    assert dense_gqa.unpack_blocks([ok[:, :10]], m, "cpu") is None
+    assert dense_gqa.unpack_blocks([], m, "cpu")["k"].shape == (3, 0, 2, 8)
 
 
 def test_rel_err():

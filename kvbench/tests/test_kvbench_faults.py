@@ -59,8 +59,8 @@ def altered(hook):
 
 
 def altered_store(get_batch):
-    def f(tokens, n):
-        return [b * np.float16(1.5) for b in get_batch(tokens, n)]
+    def f(tokens, n, start_block=0):
+        return [b * np.float16(1.5) for b in get_batch(tokens, n, start_block=start_block)]
     return f
 
 

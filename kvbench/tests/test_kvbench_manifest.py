@@ -1,13 +1,16 @@
 """A lint of BENCHMARK.json against the benchmark's rules: names and units
 in the allowed characters, every cell's files found by name, every
-per-layer metric's ``moves`` reported in each of its cells, and the check
-time of a full benchmark within its budget."""
+configuration's architecture module found and accepting the program's
+config, every per-layer metric's ``moves`` reported in each of its cells,
+and the check time of a full benchmark within its budget."""
 
 import re
 
 import pytest
 
+from kvbench import arch
 from kvbench import cell as cellmod
+from kvbench import run as kvrun
 from kvbench.cell import HERE, ROOT, load_json
 
 BENCH = load_json(ROOT / "BENCHMARK.json")
@@ -56,6 +59,14 @@ def test_configs():
         assert f["name"] == c["name"] and f["source"] == c["source"] and f["reduced"] == c["reduced"]
         assert any(w["config"] == c["name"] for w in BENCH["workloads"])
     assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_configuration_names_an_architecture_module_that_accepts_it(name):
+    conf = load_json(ROOT / next(c["file"] for c in BENCH["configs"] if c["name"] == name))
+    module = conf.get("arch", arch.DEFAULT)
+    assert NAME.match(module) and (HERE / "arch" / f"{module}.py").exists()
+    kvrun.port_config(conf)  # raises where the module's check_config refuses the program's config
 
 
 @pytest.mark.parametrize("name", CELLS)

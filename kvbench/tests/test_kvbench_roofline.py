@@ -4,11 +4,13 @@ tree against the program's parameter template."""
 import pytest
 import torch
 
-from kvbench import roofline, weights
-from kvbench.cell import HERE, load_json
+from kvbench import arch, roofline, weights
+from kvbench.arch import dense_gqa
+from kvbench.cell import HERE, ROOT, load_json
 
 GLM = load_json(HERE / "configs" / "glm4-9b.json")["model"]
 QWEN = load_json(HERE / "configs" / "qwen3-14b.json")["model"]
+CONFIGS = {c["name"]: c["file"] for c in load_json(ROOT / "BENCHMARK.json")["configs"]}
 
 
 def test_prefill_flops_by_hand():
@@ -41,7 +43,7 @@ def test_kernel_calls_by_hand():
     assert b == 2 * 2 * 40 * 128 + 2 * 2 * 1100 * 8 * 128 + 4 * 69 + 4
 
 
-@pytest.mark.parametrize("name", ["glm4-9b", "qwen3-14b"])
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_weights_match_the_program_template(name):
     import dataclasses
 
@@ -49,21 +51,22 @@ def test_weights_match_the_program_template(name):
     from repro_torch.models import api
     from repro_torch.models.common import tree_flatten
 
-    conf = load_json(HERE / "configs" / f"{name}.json")
-    cfg = dataclasses.replace(get_config(conf["port_config"]), **conf["port_overrides"])
+    conf = load_json(ROOT / CONFIGS[name])
+    mod = arch.of(conf)
+    cfg = dataclasses.replace(get_config(conf["port_config"]), **conf.get("port_overrides", {}))
     specs = api.param_specs(cfg)
-    mine = weights.shapes(conf["model"])
+    mine = mod.shapes(conf["model"])
     flat_specs, def_specs = tree_flatten(specs)
     flat_mine, def_mine = tree_flatten(mine, is_leaf=lambda t: isinstance(t, tuple))
     assert def_specs == def_mine
     assert [tuple(t.shape) for t in flat_specs] == list(flat_mine)
-    assert weights.count(conf["model"]) == sum(t.numel() for t in flat_specs)
+    assert weights.count(mod, conf["model"]) == sum(t.numel() for t in flat_specs)
 
 
 def test_weights_seeded_and_scaled():
     m = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_head": 16, "d_ff": 128,
          "vocab_size": 256, "qk_norm": True, "qkv_bias": True}
-    a, b = weights.make(m, 2**31 + 9, "cpu"), weights.make(m, 2**31 + 9, "cpu")
+    a, b = weights.make(dense_gqa, m, 2**31 + 9, "cpu"), weights.make(dense_gqa, m, 2**31 + 9, "cpu")
     assert torch.equal(a["blocks"]["mlp"]["w_up"], b["blocks"]["mlp"]["w_up"])
     assert a["embed"].dtype == torch.bfloat16
     assert torch.equal(a["blocks"]["attn"]["q_norm"], torch.ones(2, 16, dtype=torch.bfloat16))
