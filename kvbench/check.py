@@ -16,7 +16,24 @@ the request's blocks:
                    host, or disk through the LSM lookup and the codec)
 
 each the largest over the sample; a block missing or of the wrong count
-reads ``inf``.  Over every request of the window, not only the sample,
+reads ``inf``.  Where the architecture module routes tokens to experts
+(``ROUTED``), a token whose k-th and (k+1)-th router scores lie within the
+program's rounding may take another expert in the program than in the
+reference, and from then on its state differs by far more than rounding.
+So the f32 reference runs under the program's own expert choices (the
+sample's ``route``, kept by the runner), the two numbers above are read
+against that run, and the choices are judged apart:
+
+  route_gap        (best score of an unchosen expert − worst score of a
+                   chosen one)⁺ / std of the token's selection scores, the
+                   reference's in that run, the largest over the sampled
+                   tokens and MoE layers: what ``decode_gap`` is to a
+                   served token
+
+A routed sample without a route, or with one the reference refuses, reads
+``inf`` in all three.  The control records its own routes in its fp8 run,
+and is judged against the f32 reference run under those: each side under
+its own routing.  Over every request of the window, not only the sample,
 ``reuse_mismatches`` counts those whose reused tokens differ from what
 their traffic built, and ``blocks_missing`` the blocks taken back without
 data (each limit 0).
@@ -50,17 +67,21 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+KV = ("kv_fresh_err", "kv_promoted_err")
+ROUTED_KV = KV + ("route_gap",)
+
+
 def kv_numbers(arch: ModuleType, params: Dict, model: Dict, samples: List[Dict], block: int, device,
                control: bool = False) -> Dict[str, Dict[str, float]]:
     """``samples``: dicts with ``tokens`` (the prompt), ``reused`` (tokens the
-    program took from the cache), ``fresh`` (the hook's blocks) and
-    ``promoted`` (the cache's blocks of the reused prefix).  Returns
+    program took from the cache), ``fresh`` (the hook's blocks),
+    ``promoted`` (the cache's blocks of the reused prefix) and, from a
+    program that routes, ``route`` ({layer: (S, k) ids}).  Returns
     {"program": numbers} and, with ``control``, {"control": numbers} of the
     reference in fp8 put in the program's place."""
-    out = {"program": {"kv_fresh_err": 0.0, "kv_promoted_err": 0.0}}
+    routed = bool(getattr(arch, "ROUTED", False))
     if not samples:
-        out["program"] = {"kv_fresh_err": math.inf, "kv_promoted_err": math.inf}
-        return out
+        return {"program": dict.fromkeys(ROUTED_KV if routed else KV, math.inf)}
     S = len(samples[0]["tokens"])
     if any(len(s["tokens"]) != S for s in samples):
         raise ValueError("the sample's prompts differ in length")
@@ -71,35 +92,106 @@ def kv_numbers(arch: ModuleType, params: Dict, model: Dict, samples: List[Dict],
         fresh = arch.unpack_blocks(s["fresh"], model, device) if len(s["fresh"]) == nb - start else None
         prom = arch.unpack_blocks(s["promoted"], model, device) if len(s["promoted"]) == start else None
         progs.append((start * block, nb * block, fresh, prom))
+    if routed:
+        return _routed_numbers(arch, params, model, tokens, progs, _routes(samples, device), control)
+    out = {"program": dict.fromkeys(KV, 0.0)}
     num = out["program"]
     kept: List = [None] * model["n_layers"] if control else None
 
     def compare(i, parts):
-        for b, (r0, r1, fresh, prom) in enumerate(progs):
-            for name, x in parts.items():
-                ref = x[b]
-                num["kv_fresh_err"] = max(num["kv_fresh_err"], math.inf if fresh is None
-                                          else rel_err(fresh[name][i], ref[r0:r1]))
-                num["kv_promoted_err"] = max(num["kv_promoted_err"], math.inf if prom is None
-                                             else rel_err(prom[name][i], ref[:r0]))
+        _program_err(num, progs, i, parts)
         if kept is not None:
             kept[i] = {name: x.clone() for name, x in parts.items()}
 
     arch.forward(params, model, tokens, on_state=compare)
     if control:
-        ctl = {"kv_fresh_err": 0.0, "kv_promoted_err": 0.0}
+        ctl = dict.fromkeys(KV, 0.0)
 
         def compare_ctl(i, parts):
-            refs = kept[i]
-            for b, (r0, r1, _, _) in enumerate(progs):
-                for name, x in parts.items():
-                    xb, ref = x[b], refs[name][b]
-                    ctl["kv_fresh_err"] = max(ctl["kv_fresh_err"], rel_err(xb[r0:r1], ref[r0:r1]))
-                    ctl["kv_promoted_err"] = max(ctl["kv_promoted_err"], rel_err(xb[:r0], ref[:r0]))
+            _control_err(ctl, progs, parts, kept[i])
             kept[i] = None
 
         arch.forward(params, model, tokens, precision="fp8", on_state=compare_ctl)
         out["control"] = ctl
+    return out
+
+
+def _program_err(num: Dict, progs: List, i: int, parts: Dict) -> None:
+    """Layer ``i`` of the program's blocks against the reference's ``parts``."""
+    for b, (r0, r1, fresh, prom) in enumerate(progs):
+        for name, x in parts.items():
+            ref = x[b]
+            num["kv_fresh_err"] = max(num["kv_fresh_err"], math.inf if fresh is None
+                                      else rel_err(fresh[name][i], ref[r0:r1]))
+            num["kv_promoted_err"] = max(num["kv_promoted_err"], math.inf if prom is None
+                                         else rel_err(prom[name][i], ref[:r0]))
+
+
+def _control_err(num: Dict, progs: List, low: Dict, refs: Dict) -> None:
+    """One layer of the control's state ``low`` against the reference's ``refs``."""
+    for b, (r0, r1, _, _) in enumerate(progs):
+        for name, x in low.items():
+            xb, ref = x[b], refs[name][b]
+            num["kv_fresh_err"] = max(num["kv_fresh_err"], rel_err(xb[r0:r1], ref[r0:r1]))
+            num["kv_promoted_err"] = max(num["kv_promoted_err"], rel_err(xb[:r0], ref[:r0]))
+
+
+def _routes(samples: List[Dict], device) -> Optional[Dict[int, torch.Tensor]]:
+    """The sample's routes stacked, {layer: (B, S, k) long}, or None where a
+    request has none, or the requests' layers or shapes disagree (the
+    reference refuses a shape other than its own)."""
+    routes = [s.get("route") for s in samples]
+    if any(r is None for r in routes) or any(set(r) != set(routes[0]) for r in routes):
+        return None
+    out = {}
+    for i in routes[0]:
+        ids = [torch.as_tensor(r[i]) for r in routes]
+        if any(x.shape != ids[0].shape for x in ids):
+            return None
+        out[i] = torch.stack(ids).to(device, torch.long)
+    return out
+
+
+def route_gap(ids: torch.Tensor, scores: torch.Tensor) -> float:
+    """The largest, over tokens, of (best unchosen − worst chosen score)⁺ /
+    std of the token's scores.  ``ids`` (..., k), ``scores`` (..., E)."""
+    chosen = torch.zeros_like(scores, dtype=torch.bool).scatter_(-1, ids, True)
+    worst = scores.masked_fill(~chosen, math.inf).amin(-1)
+    best = scores.masked_fill(chosen, -math.inf).amax(-1)
+    return float(((best - worst).clamp_min(0) / scores.std(-1).clamp_min(1e-30)).max())
+
+
+def _routed_numbers(arch: ModuleType, params: Dict, model: Dict, tokens: torch.Tensor, progs: List,
+                    route: Optional[Dict], control: bool) -> Dict[str, Dict[str, float]]:
+    """Each side's numbers against the f32 reference run under its own routes."""
+
+    def judged(route, compare) -> Dict[str, float]:
+        num = dict.fromkeys(ROUTED_KV, 0.0)
+        if route is None:
+            return dict.fromkeys(num, math.inf)
+        seen = set()
+
+        def on_route(i, ids, scores):
+            seen.add(i)
+            num["route_gap"] = max(num["route_gap"], route_gap(route[i], scores))
+
+        try:
+            arch.forward(params, model, tokens, route=route, on_route=on_route,
+                         on_state=lambda i, parts: compare(num, i, parts))
+        except ValueError:  # the reference refuses the route: a layer missing, an id out of range or repeated
+            return dict.fromkeys(num, math.inf)
+        return num if seen == set(route) else dict.fromkeys(num, math.inf)
+
+    out = {"program": judged(route, lambda num, i, parts: _program_err(num, progs, i, parts))}
+    if control:
+        kept, routes = {}, {}
+
+        def keep(i, parts):
+            kept[i] = {name: x.clone() for name, x in parts.items()}
+
+        arch.forward(params, model, tokens, precision="fp8", on_state=keep,
+                     on_route=lambda i, ids, scores: routes.__setitem__(i, ids.clone()))
+        out["control"] = judged(routes, lambda num, i, parts: _control_err(num, progs, kept.pop(i), parts))
     return out
 
 

@@ -14,6 +14,14 @@ clients each submit a request and, when its record comes back from
 ``ServingEngine.step``, the next; a request's TTFT runs from its submit to
 the return of the step that served it.  Requests still in flight when the
 window closes are served but not counted.
+
+A routed model's expert choices (``kvbench/arch/``'s contract): where the
+program's hook has an attribute ``route``, ``{layer: (S, k) int}`` on the
+device covering every position its last call computed, the tap keeps a
+device clone of it beside that call's blocks.  The reservoir keeps the
+clones of the sampled requests and drops the rest; the sample's routes go
+to the host only once the window has closed.  A hook without ``route``
+costs nothing.
 """
 
 from __future__ import annotations
@@ -58,20 +66,24 @@ def run(ctx) -> Dict:
         params = weights.make(ctx.arch, model, ctx.seed, dev)
     with phases.timed("capture"):
         hook = make_real_prefill(ctx.port_cfg, params, BLOCK, dev, lengths=(S,))
-    hook = ctx.fault("hook", hook)
+    # the routes are read from the program's own hook: a fault a test plants
+    # around it alters the blocks
+    program_hook, hook = hook, ctx.fault("hook", hook)
     runtime = RuntimeServices(io_threads=tr["io_threads"])
     root = tempfile.mkdtemp(prefix="kvbench_store_")
     store = ShardedKVBlockStore(root, n_shards=N_SHARDS, block_size=BLOCK, io_executor=runtime.executor)
     store.get_batch = ctx.fault("get_batch", store.get_batch)
 
     # what the timed path hands over, in call order: the cache's blocks of
-    # each request's reused prefix, and the hook's fresh blocks
+    # each request's reused prefix, and the hook's fresh blocks with the
+    # program's routes (None from a hook without them)
     taken: List = []
     made: List = []
 
     def tapped_hook(tokens, reused):
         blocks, secs = hook(tokens, reused)
-        made.append(blocks)
+        route = getattr(program_hook, "route", None)
+        made.append((blocks, None if route is None else {i: ids.clone() for i, ids in route.items()}))
         return blocks, secs
 
     eng = make_engine(ctx.port_cfg, tapped_hook, store, runtime)
@@ -118,10 +130,13 @@ def run(ctx) -> Dict:
     finally:
         store.close()
         shutil.rmtree(root, ignore_errors=True)
-    del eng, hook, h
+    del eng, hook, program_hook, h
     ctx.free()
 
     done, samples = window["requests"], window.pop("samples")
+    for s in samples:
+        if "route" in s:
+            s["route"] = {i: ids.cpu() for i, ids in s["route"].items()}
     t_check = time.perf_counter()
     nums = check.kv_numbers(ctx.arch, params, model, samples, BLOCK, dev, control=ctx.control)
     check_s = time.perf_counter() - t_check
@@ -168,7 +183,7 @@ def _window(ctx, eng, gen, taken, made, fetch_s, spans) -> Dict:
         now = time.perf_counter()
         if len(taken) != len(recs) or len(made) != len(recs):
             raise RuntimeError(f"a step served {len(recs)} requests, the taps saw {len(taken)} and {len(made)}")
-        for rec, prom, fresh in zip(recs, taken, made):
+        for rec, prom, (fresh, route) in zip(recs, taken, made):
             f = inflight.pop(rec.rid)
             if t0 is None:
                 warm -= 1
@@ -178,6 +193,8 @@ def _window(ctx, eng, gen, taken, made, fetch_s, spans) -> Dict:
                              "expected_reuse": r.expected_reuse, "io_wait_s": rec.io_wait_s,
                              "compute_s": rec.compute_s, "missing": sum(b is None for b in prom)})
                 s = {"tokens": r.tokens, "reused": rec.reused_tokens, "fresh": fresh, "promoted": prom}
+                if route is not None:
+                    s["route"] = route
                 i = len(done) - 1
                 if i < SAMPLE:
                     samples.append(s)

@@ -22,7 +22,7 @@ from kvbench import run as kvrun
 from kvbench.arch import dense_gqa
 from kvbench.cell import HERE, ROOT, load_json
 from kvbench.runners import engine_loop
-from kvbench.tests.smoke import smoke_config
+from kvbench.tests.smoke import smoke_cell, smoke_config
 
 BENCH = load_json(ROOT / "BENCHMARK.json")
 CONFIGS = [c["name"] for c in BENCH["configs"]]
@@ -172,6 +172,23 @@ def test_operations_and_bytes_at_the_cells_shapes_as_before(name):
         for size, value in want.get(fn, {}).items():
             assert getattr(mod, fn)(model, size) == value, (fn, size)
     assert mod.block_bytes(model, engine_loop.BLOCK) == want["block_bytes"]
+
+# (d) the checks a run of each cell prints, in order: a dense module has no
+# routes, so no ``route_gap``
+CHECKS = {
+    "glm4-9b.docqa-hot": ["kv_fresh_err", "kv_promoted_err", "reuse_mismatches", "blocks_missing"],
+    "glm4-9b.docqa-disk": ["kv_fresh_err", "kv_promoted_err", "reuse_mismatches", "blocks_missing"],
+    "qwen3-14b.decode-long": ["decode_gap", "decode_logit_err"],
+}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_dense_cells_checks_are_as_before(name):
+    cell = smoke_cell(name)
+    assert cell.arch is dense_gqa and not getattr(dense_gqa, "ROUTED", False)
+    out = kvrun.run_cell(cell, 2**31 + 21, 1.0, False, torch.device("cpu"))
+    assert list(out["checks"]) == CHECKS[name]
+    assert set(CHECKS[name]) == set(cellmod.resolve(name).limits)
 
 
 class Built(Exception):
