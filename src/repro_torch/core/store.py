@@ -23,6 +23,15 @@ race with file eviction/merging re-resolves its pointers from the index
 and retries.  Stats and the adaptive controller share a dedicated lock so
 counters sum correctly under concurrent load.
 
+Parallel decode: ``get_batch`` splits its records into contiguous
+chunks, at most one a block and one a decoder, decodes the first on the
+calling thread and the rest on one decode pool shared by every store in
+the process (not the ``IOExecutor`` the fetches themselves run on, so a
+fetch never waits on a slot its own siblings hold).  The codec's zlib
+inflate and numpy casts release the GIL on block-sized buffers, so the
+chunks run on separate cores.  A one-block get, or any get on a one-CPU
+host, is one chunk and never leaves the caller.
+
 Durability ordering (two-phase write): with ``fsync_writes`` enabled the
 tensor-log append is fsynced **before** the WAL-backed index insert, so a
 crash can only ever leave *unreferenced* log records (garbage the merge
@@ -35,8 +44,9 @@ import os
 import struct
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -58,6 +68,81 @@ from .tiering import (
 )
 
 ENTRY_BYTES = PTR_BYTES + 1
+
+# Decoders of one get's blocks, the calling thread included, at most, and
+# never more than the CPUs the process may run on: past the host's cores
+# more threads only convoy (see ``IOExecutor``).
+DECODE_MAX_WORKERS = 8
+
+_decode_lock = threading.Lock()
+_decode_pool: Optional[ThreadPoolExecutor] = None
+_decode_width = 1
+
+
+def _usable_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
+
+def _shared_decode_pool() -> Tuple[Optional[ThreadPoolExecutor], int]:
+    """The process's decode pool, made on first use, and the decoders a
+    get may use with it (its workers and the caller); ``(None, 1)`` on a
+    one-core host."""
+    global _decode_pool, _decode_width
+    with _decode_lock:
+        if _decode_pool is None:
+            _decode_width = max(1, min(DECODE_MAX_WORKERS, _usable_cpus()))
+            if _decode_width > 1:
+                _decode_pool = ThreadPoolExecutor(
+                    max_workers=_decode_width - 1, thread_name_prefix="repro-decode"
+                )
+        return _decode_pool, _decode_width
+
+
+def _drop_decode_pool() -> None:
+    """After ``fork`` the child has none of the parent's pool threads: it
+    makes its own pool at its first get."""
+    global _decode_lock, _decode_pool, _decode_width
+    _decode_lock = threading.Lock()
+    _decode_pool, _decode_width = None, 1
+
+
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_drop_decode_pool)
+
+
+def _decode_all(payloads: Sequence) -> List[np.ndarray]:
+    return [BatchCodec.decode(p) for p in payloads]
+
+
+def _decode_records(payloads: Sequence) -> Tuple[List[np.ndarray], int]:
+    """Decode ``payloads`` (bytes or views into one coalesced read) and
+    return the arrays in order, with the count the pool's threads decoded.
+    Contiguous chunks, at most one a block and one a decoder: the caller decodes the
+    first, the pool the rest, and the caller then waits for the pool's
+    chunks in order, so an error is the one a serial loop would raise first
+    (the lowest-index bad payload's).  Returns only once every chunk has
+    ended, so no pool thread still reads ``payloads`` after it."""
+    n = len(payloads)
+    pool, width = _shared_decode_pool()
+    chunks = min(width, n)
+    cut = [n * i // chunks for i in range(chunks + 1)]
+    futs = []
+    try:
+        for i in range(1, chunks):
+            futs.append(pool.submit(_decode_all, payloads[cut[i]:cut[i + 1]]))
+    except RuntimeError:  # the interpreter is exiting: the pool takes no work
+        wait(futs)
+        return _decode_all(payloads), 0
+    try:
+        out = _decode_all(payloads[: cut[1]])
+        for f in futs:
+            out.extend(f.result())
+    finally:
+        wait(futs)
+    return out, n - cut[1]
 
 
 @dataclass
@@ -92,6 +177,10 @@ class StoreStats:
     exported_blocks: int = 0
     imported_blocks: int = 0
     imported_bytes: int = 0  # stored payload bytes accepted by import
+    # blocks of get_batch decoded on the shared decode pool's threads rather
+    # than the caller's (see ``_decode_records``); over get_blocks, how often
+    # a get's decode runs in parallel
+    pooled_decode_blocks: int = 0
 
     @property
     def compression_ratio(self) -> float:
@@ -375,6 +464,7 @@ class KVBlockStore(BatchOpsMixin):
             return []
         t0 = time.perf_counter()
         out: List[np.ndarray] = []
+        pooled = 0
         # Optimistic lock-free read: resolve pointers, read payloads with no
         # lock held.  If FIFO eviction or the merge service removed a log
         # file between the scan and the read (FileNotFoundError), re-resolve
@@ -399,9 +489,10 @@ class KVBlockStore(BatchOpsMixin):
             except FileNotFoundError:
                 continue  # lost the race with eviction/merge: retry
             with maybe_span("store.decode", units=len(recs)):
-                out = [BatchCodec.decode(payload) for _, payload in recs]
+                out, pooled = _decode_records([payload for _, payload in recs])
             break
         with self._stats_lock:
+            self.stats.pooled_decode_blocks += pooled
             self.stats.get_blocks += len(out)
             self.stats.get_tokens += len(out) * B
             self.stats.io_read_s += time.perf_counter() - t0
