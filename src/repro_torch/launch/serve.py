@@ -147,7 +147,7 @@ def run_staged(engine: ServingEngine, s: BenchScale, seed: int = 0) -> List[Stag
     engine.stats.hits.clear()
 
     # a stage is submitted at once, so a stage's TTFT is each request's
-    # service time (ttft_s - queue_s = io_s + compute_s), as the
+    # service time (``RequestRecord.service_s`` = ttft_s - queue_s), as the
     # reference's: the wall-clock wait behind the stage's earlier requests
     # stays out of a sum with modeled compute
     out: List[StageResult] = []
@@ -160,7 +160,7 @@ def run_staged(engine: ServingEngine, s: BenchScale, seed: int = 0) -> List[Stag
                 stage=si,
                 expected_hit=s.stages[si],
                 hit_rate=float(np.mean([r.reused_tokens / r.prompt_len for r in recs])),
-                mean_ttft_s=float(np.mean([r.ttft_s - r.queue_s for r in recs])),
+                mean_ttft_s=float(np.mean([r.service_s for r in recs])),
                 mean_io_s=float(np.mean([r.io_s for r in recs])),
                 mean_compute_s=float(np.mean([r.compute_s for r in recs])),
             )

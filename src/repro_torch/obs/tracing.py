@@ -20,7 +20,9 @@ with ``store.probe``, ``store.scan``, ``store.read`` and ``store.decode``
 fetch), ``fulfill``, ``compute`` with ``prefill.replay`` and
 ``prefill.copy_out`` beneath it (the real-prefill hook), and ``commit``.
 Only ``ENGINE_SPANS`` close into ``repro_engine_span_seconds_<name>``
-histograms; the whole trace stays in ``ServingEngine.traces``.  The
+histograms; the whole trace stays in ``ServingEngine.traces``.  Every span
+of a request ends before its trace enters ``ServingEngine.traces``: the
+engine waits on the request's one fetch, and the fetch on its workers.  The
 engine's ``RequestRecord.ttft_s`` (and so ``repro_engine_ttft_seconds``)
 includes ``queue_s``.
 
@@ -102,8 +104,8 @@ class Span:
 class TraceContext:
     """One request's trace: an id plus thread-safe span records.
 
-    Multiple spans may share a name (a hedged fetch records two ``fetch``
-    spans); ``span_totals`` aggregates by name.
+    Multiple spans may share a name (``store.read`` under both ``fetch``
+    and ``fulfill``); ``span_totals`` aggregates by name.
     """
 
     __slots__ = ("trace_id", "t0", "_spans", "_lock", "_ids", "_base")
@@ -164,7 +166,7 @@ class TraceContext:
             return [(s.name, s.start - self.t0, s.end - s.start) for s in self._spans]
 
     def span_totals(self) -> Dict[str, float]:
-        """Total seconds per span name (hedged/repeated spans summed)."""
+        """Total seconds per span name (repeated spans summed)."""
         out: Dict[str, float] = {}
         with self._lock:
             for s in self._spans:

@@ -18,10 +18,9 @@ Production concerns implemented here:
     of the I/O (``io_wait``), not the full promotion,
   * write-behind commits: the disk write-through rides the runtime's
     ``CommitQueue`` drain thread instead of the request,
-  * straggler mitigation: hedged disk reads — when a fetch future exceeds
-    ``hedge_factor`` x the EWMA fetch latency, a second fetch is issued on
-    the executor and the faster attempt wins (duplicate I/O is accounted).
-    Without a runtime the legacy inline re-issue path is used,
+  * one fetch a request, waited for: the engine never hedges, so
+    ``RequestRecord.hedged``, ``EngineStats.hedged_reads`` and
+    ``redispatches``, kept from the reference's surface, read False / 0,
   * scheduled maintenance (LSM compaction / file merging) between batches —
     run through ``MaintenanceService`` off the request path when a runtime
     is attached, inline otherwise,
@@ -41,9 +40,6 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from concurrent.futures import FIRST_COMPLETED
-from concurrent.futures import TimeoutError as FutureTimeoutError
-from concurrent.futures import wait as futures_wait
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
@@ -71,6 +67,11 @@ class RequestRecord:
     prefetched: bool = False
     stage: int = -1
     queue_s: float = 0.0  # submit -> the engine thread starts serving it
+
+    @property
+    def service_s(self) -> float:
+        """TTFT less the queue: the I/O and compute spent on the request."""
+        return self.io_s + self.compute_s
 
 
 @dataclass
@@ -128,7 +129,6 @@ class ServingEngine:
         compute: ComputeModel,
         kv_bytes_per_token: int,
         max_batch_tokens: int = 16_384,
-        hedge_factor: float = 4.0,
         maintenance_every: int = 8,
         real_prefill: Optional[Callable] = None,
         runtime: Optional[RuntimeServices] = None,
@@ -153,7 +153,6 @@ class ServingEngine:
         self.compute = compute
         self.kv_bytes_per_token = kv_bytes_per_token
         self.max_batch_tokens = max_batch_tokens
-        self.hedge_factor = hedge_factor
         self.maintenance_every = maintenance_every
         self.real_prefill = real_prefill  # (tokens, reused) -> (blocks, seconds)
         self.simulate_compute_wall = simulate_compute_wall
@@ -172,7 +171,6 @@ class ServingEngine:
         self._queue: Deque = deque()  # (request, arrival); popleft is O(1)
         self._staged: Optional[List[_Staged]] = None  # batch k+1, prefetching
         self._batches = 0
-        self._ewma_read_s: float = 0.0
         self._block_template: Optional[np.ndarray] = None
         self.tracing = bool(tracing)
         self.traces = TraceSink()
@@ -309,67 +307,20 @@ class ServingEngine:
         self.stats.evicted_files += got.evicted_files
 
     # ------------------------------------------------------------- serving
-    def _acquire_hedged(self, tokens):
-        """Legacy inline hedging (no runtime attached): re-issue the whole
-        promotion when it exceeds hedge_factor x EWMA latency."""
-        t0 = time.perf_counter()
-        acq = self.h.acquire(tokens)
-        dt = time.perf_counter() - t0
-        hedged = False
-        if (
-            self._ewma_read_s > 0
-            and dt > self.hedge_factor * self._ewma_read_s
-            and acq.disk_tokens > 0
-        ):
-            # straggler: retry the promotion path; fastest attempt wins
-            self.h.release(acq)
-            t1 = time.perf_counter()
-            acq2 = self.h.acquire(tokens)
-            dt2 = time.perf_counter() - t1
-            self.stats.hedged_reads += 1
-            hedged = True
-            if dt2 < dt:
-                acq, dt = acq2, dt2
-            else:
-                self.h.release(acq2)
-        self._ewma_read_s = 0.9 * self._ewma_read_s + 0.1 * dt if self._ewma_read_s else dt
-        return acq, dt, hedged
-
-    def _resolve_fetch(self, st: _Staged) -> Tuple[DiskFetch, float, bool]:
+    def _resolve_fetch(self, st: _Staged) -> Tuple[DiskFetch, float]:
         """Obtain the DiskFetch for a staged request: wait on the prefetch
-        future (hedging stragglers on the executor) or, if none was
-        launched, run the fetch through the executor now.  Returns
-        (fetch, wait_seconds, hedged)."""
-        ex = self.runtime.executor
+        future or, if none was launched, run the fetch through the executor
+        now and wait on it.  Returns (fetch, wait_seconds)."""
         fut = st.future
         if fut is None:
             if not st.plan.need_disk:
-                return DiskFetch(), 0.0, False
-            fut = ex.submit(self.h.fetch, st.plan)
+                return DiskFetch(), 0.0
+            fut = self.runtime.executor.submit(self.h.fetch, st.plan)
         elif fut.done():
             self.stats.prefetch_ready += 1
         t0 = time.perf_counter()
-        hedged = False
-        timeout = self.hedge_factor * self._ewma_read_s if self._ewma_read_s > 0 else None
-        try:
-            fetched = fut.result(timeout=timeout)
-        except FutureTimeoutError:
-            # straggler: hedge on the executor; first finished attempt wins
-            hedge = ex.submit(self.h.fetch, st.plan)
-            self.stats.hedged_reads += 1
-            self.stats.redispatches += 1
-            hedged = True
-            pending = {fut, hedge}
-            done = set()
-            while not done:
-                done, pending = futures_wait(pending, timeout=1.0, return_when=FIRST_COMPLETED)
-            fetched = next(iter(done)).result()
-        wait_s = time.perf_counter() - t0
-        if fetched.io_s > 0:
-            self._ewma_read_s = (
-                0.9 * self._ewma_read_s + 0.1 * fetched.io_s if self._ewma_read_s else fetched.io_s
-            )
-        return fetched, wait_s, hedged
+        fetched = fut.result()
+        return fetched, time.perf_counter() - t0
 
     def _serve_one(self, st: _Staged) -> RequestRecord:
         queue_s = time.perf_counter() - st.arrival
@@ -399,7 +350,7 @@ class ServingEngine:
         first_block_s: Optional[float] = None
         if self.runtime is not None:
             with maybe_span("io_wait"):
-                fetched, wait_s, hedged = self._resolve_fetch(st)
+                fetched, wait_s = self._resolve_fetch(st)
             first_block_s = fetched.first_block_s
             t1 = time.perf_counter()
             acq = self.h.fulfill(st.plan, fetched)
@@ -412,8 +363,9 @@ class ServingEngine:
             if prefetched:
                 self.stats.overlap_io_s += max(0.0, fetched.io_s - wait_s)
         else:
-            acq, io_s, hedged = self._acquire_hedged(tokens)
-            wait_s = io_s
+            t0 = time.perf_counter()
+            acq = self.h.acquire(tokens)
+            io_s = wait_s = time.perf_counter() - t0
         reused = acq.reuse_tokens
         n_new = len(tokens) - reused
 
@@ -444,7 +396,6 @@ class ServingEngine:
             first_block_s=first_block_s,
             compute_s=compute_s,
             ttft_s=queue_s + io_s + compute_s,
-            hedged=hedged,
             prefetched=prefetched,
             stage=getattr(req, "stage", -1),
             queue_s=queue_s,

@@ -169,6 +169,86 @@ def test_ttft_is_queue_plus_io_plus_compute(runs, tracing):
     for r in recs:
         assert r.queue_s >= 0.0
         assert r.ttft_s == r.queue_s + r.io_s + r.compute_s
+        assert r.service_s == pytest.approx(r.ttft_s - r.queue_s, rel=1e-12, abs=1e-15)
+
+
+SLEEP = 0.5  # the straggling get's stall, seconds
+
+
+def serve_straggler(root, hook, runtime: bool, tracing: bool):
+    """Warm up every document (drained to disk), serve requests on
+    documents 1 and 2 until document 0 has left the device and host tiers,
+    then serve one request on document 0 alone, its first ``get_batch``
+    stalled SLEEP seconds.  The engine, the straggler's record, the
+    ``get_batch`` calls made while it was served, the disk tokens it hit
+    and the clock at the end of the stalled get."""
+    cfg, fn = hook
+    rt = RuntimeServices(io_threads=2) if runtime else None
+    store = ShardedKVBlockStore(str(root), n_shards=4, block_size=BLOCK, io_executor=rt.executor if rt else None)
+    get_batch = store.get_batch
+    calls, stall = [], {"armed": False, "end": None}
+
+    def straggling(tokens, n_tokens, start_block=0):
+        calls.append(threading.get_ident())
+        armed, stall["armed"] = stall["armed"], False
+        if armed:
+            time.sleep(SLEEP)
+        out = get_batch(tokens, n_tokens, start_block=start_block)
+        if armed:
+            stall["end"] = time.perf_counter()
+        return out
+
+    store.get_batch = straggling
+    h = CacheHierarchy(BLOCK, device_budget_blocks=12, host_budget_blocks=4, store=store)
+    eng = ServingEngine(h, ComputeModel(cfg), kv_bytes_per_token=cfg.kv_bytes_per_token, max_batch_tokens=PROMPT,
+                        real_prefill=fn, runtime=rt, tracing=tracing)
+    try:
+        for d in range(DOCS):
+            eng.submit(Req(1000 + d, doc(d) + [251] * BLOCK))
+        eng.run()
+        eng.drain()
+        for rid in range(1, 3 * DOCS):
+            if rid % DOCS:
+                eng.submit(Req(rid, prompt(rid)))
+        eng.run()
+        before, n0 = h.stats.tokens_hit_disk, len(calls)
+        stall["armed"] = True
+        eng.submit(Req(0, prompt(0)))
+        (rec,) = eng.run()
+        disk = h.stats.tokens_hit_disk - before
+        eng.close()
+    finally:
+        store.close()
+    return eng, rec, calls[n0:], disk, stall["end"]
+
+
+@pytest.mark.parametrize("tracing", [True, False], ids=["traced", "untraced"])
+@pytest.mark.parametrize("runtime", [True, False], ids=["runtime", "inline"])
+def test_a_straggling_fetch_is_fetched_once_and_waited_for(hook, tmp_path, runtime, tracing):
+    """A fetch that stalls after fast ones is not hedged: the store is read
+    once for the request, the engine waits for that read, and, traced, the
+    request's trace holds one ``fetch`` with every span inside its
+    parent."""
+    eng, rec, reads, disk, stall_end = serve_straggler(tmp_path, hook, runtime, tracing)
+    assert disk > 0 and stall_end is not None  # the straggler reused a prefix from disk, through the stalled get
+    assert len(reads) == 1
+    assert not rec.hedged and eng.stats.hedged_reads == eng.stats.redispatches == 0
+    assert eng.runtime_report()["hedged_reads"] == 0
+    # served alone, the engine starts waiting as the fetch starts
+    assert rec.io_wait_s >= SLEEP / 2
+    if tracing:
+        spans = {s.sid: s for s in eng.traces.get(rec.rid).records}
+        (fetch,) = [s for s in spans.values() if s.name == "fetch"]
+        assert fetch.end >= stall_end
+        for sp in spans.values():
+            if sp.parent is not None:
+                p = spans[sp.parent]
+                assert p.start <= sp.start and sp.end <= p.end, (p, sp)
+        if runtime:
+            (io_wait,) = [s for s in spans.values() if s.name == "io_wait"]
+            assert io_wait.end >= stall_end
+    else:
+        assert len(eng.traces) == 0
 
 
 def test_tracing_off_records_nothing_and_reuses_as_the_traced_run(runs):
