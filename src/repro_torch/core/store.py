@@ -27,10 +27,13 @@ Parallel decode: ``get_batch`` splits its records into contiguous
 chunks, at most one a block and one a decoder, decodes the first on the
 calling thread and the rest on one decode pool shared by every store in
 the process (not the ``IOExecutor`` the fetches themselves run on, so a
-fetch never waits on a slot its own siblings hold).  The codec's zlib
-inflate and numpy casts release the GIL on block-sized buffers, so the
-chunks run on separate cores.  A one-block get, or any get on a one-CPU
-host, is one chunk and never leaves the caller.
+fetch never waits on a slot its own siblings hold).  Each chunk's int8
+blocks are inflated and dequantized in one call into the native decoder
+(``native/block_decode.py``), which holds no GIL for its length, so the chunks run
+on separate cores and never queue for the interpreter behind threads
+running Python; the decoder is built or loaded when the store is
+constructed.  A one-block get, or any get on a one-CPU host, is one chunk
+and never leaves the caller.
 
 Durability ordering (two-phase write): with ``fsync_writes`` enabled the
 tensor-log append is fsynced **before** the WAL-backed index insert, so a
@@ -50,6 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..native import block_decode
 from ..obs.tracing import maybe_span
 from .batchops import BatchOpsMixin
 from .codec import CODEC_INT8, BatchCodec
@@ -113,13 +117,12 @@ if hasattr(os, "register_at_fork"):
     os.register_at_fork(after_in_child=_drop_decode_pool)
 
 
-def _decode_all(payloads: Sequence) -> List[np.ndarray]:
-    return [BatchCodec.decode(p) for p in payloads]
-
-
-def _decode_records(payloads: Sequence) -> Tuple[List[np.ndarray], int]:
+def _decode_records(
+    dec: block_decode.NativeDecoder, payloads: Sequence
+) -> Tuple[List[np.ndarray], int, int]:
     """Decode ``payloads`` (bytes or views into one coalesced read) and
-    return the arrays in order, with the count the pool's threads decoded.
+    return the arrays in order, with the counts the pool's threads and the
+    native decoder decoded.
     Contiguous chunks, at most one a block and one a decoder: the caller decodes the
     first, the pool the rest, and the caller then waits for the pool's
     chunks in order, so an error is the one a serial loop would raise first
@@ -132,17 +135,20 @@ def _decode_records(payloads: Sequence) -> Tuple[List[np.ndarray], int]:
     futs = []
     try:
         for i in range(1, chunks):
-            futs.append(pool.submit(_decode_all, payloads[cut[i]:cut[i + 1]]))
+            futs.append(pool.submit(block_decode.decode, dec, payloads[cut[i]:cut[i + 1]]))
     except RuntimeError:  # the interpreter is exiting: the pool takes no work
         wait(futs)
-        return _decode_all(payloads), 0
+        out, native = block_decode.decode(dec, payloads)
+        return out, 0, native
     try:
-        out = _decode_all(payloads[: cut[1]])
+        out, native = block_decode.decode(dec, payloads[: cut[1]])
         for f in futs:
-            out.extend(f.result())
+            part, part_native = f.result()
+            out.extend(part)
+            native += part_native
     finally:
         wait(futs)
-    return out, n - cut[1]
+    return out, n - cut[1], native
 
 
 @dataclass
@@ -181,6 +187,9 @@ class StoreStats:
     # than the caller's (see ``_decode_records``); over get_blocks, how often
     # a get's decode runs in parallel
     pooled_decode_blocks: int = 0
+    # blocks of get_batch the native decoder decoded (``native/block_decode.py``);
+    # over get_blocks, how often a get's decode leaves the interpreter
+    native_decode_blocks: int = 0
 
     @property
     def compression_ratio(self) -> float:
@@ -241,6 +250,7 @@ class KVBlockStore(BatchOpsMixin):
         fsync_writes: Optional[bool] = None,
         tiering: Optional[TieringPolicy] = None,
     ):
+        self._decoder = block_decode.load()  # built here, never inside a get
         # ``fsync_writes`` is the documented knob; ``fsync`` is kept as a
         # backward-compatible alias (either turns durability on).
         self.fsync_writes = bool(fsync) if fsync_writes is None else bool(fsync_writes)
@@ -464,7 +474,7 @@ class KVBlockStore(BatchOpsMixin):
             return []
         t0 = time.perf_counter()
         out: List[np.ndarray] = []
-        pooled = 0
+        pooled = native = 0
         # Optimistic lock-free read: resolve pointers, read payloads with no
         # lock held.  If FIFO eviction or the merge service removed a log
         # file between the scan and the read (FileNotFoundError), re-resolve
@@ -489,10 +499,11 @@ class KVBlockStore(BatchOpsMixin):
             except FileNotFoundError:
                 continue  # lost the race with eviction/merge: retry
             with maybe_span("store.decode", units=len(recs)):
-                out, pooled = _decode_records([payload for _, payload in recs])
+                out, pooled, native = _decode_records(self._decoder, [payload for _, payload in recs])
             break
         with self._stats_lock:
             self.stats.pooled_decode_blocks += pooled
+            self.stats.native_decode_blocks += native
             self.stats.get_blocks += len(out)
             self.stats.get_tokens += len(out) * B
             self.stats.io_read_s += time.perf_counter() - t0

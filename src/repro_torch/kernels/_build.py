@@ -10,32 +10,26 @@ takes seconds:
 ``kernels/include/`` holds what every source shares.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of its
 source and the shared headers, so an edit to either is rebuilt and an
-unchanged kernel is loaded as it is.  ``build_all()`` starts every
-``nvcc`` at once and waits for all of them.  A missing ``nvcc`` or a
-failed build raises.
+unchanged kernel is loaded as it is (``native/build.py``, which the host
+C decoder shares).  ``build_all()`` starts every ``nvcc`` at once and
+waits for all of them.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence, Tuple
+
+from ..native.build import Command, build_libraries, library_file, load_library
 
 KERNELS_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = KERNELS_DIR / "include"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def kernel_names() -> List[str]:
@@ -58,23 +52,15 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = source_path(name).read_bytes() + b"".join(h.read_bytes() for h in sorted(INCLUDE_DIR.glob("*.cuh")))
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return library_file(BUILD_DIR, name, src + " ".join(NVCC_FLAGS).encode())
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out), str(source_path(name))]
 
 
-def _start(name: str) -> Tuple[Path, subprocess.Popen | None, Path]:
-    out = library_path(name)
-    if out.exists():
-        return out, None, out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = nvcc_command(name, tmp)  # raises first when there is no toolkit
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return out, proc, tmp
+def _job(name: str) -> Tuple[Path, Command]:
+    return library_path(name), functools.partial(nvcc_command, name)
 
 
 def build_all(names: List[str] | None = None) -> Dict[str, float]:
@@ -82,32 +68,11 @@ def build_all(names: List[str] | None = None) -> Dict[str, float]:
     started together; load each library.  Returns seconds per kernel
     (0.0 for one already loaded or built)."""
     names = kernel_names() if names is None else names
-    with _lock:
-        t0 = time.perf_counter()
-        started = {n: _start(n) for n in names if n not in _libs}
-        seconds: Dict[str, float] = {n: 0.0 for n in names}
-        errors = []
-        for n, (out, proc, tmp) in started.items():
-            if proc is not None:
-                log, _ = proc.communicate()
-                seconds[n] = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    head = "\n".join(log.splitlines()[:40])
-                    errors.append(f"nvcc failed for {n} (exit {proc.returncode}):\n{head}")
-                    continue
-                os.replace(tmp, out)
-            _libs[n] = ctypes.CDLL(str(out))
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        return seconds
+    return build_libraries({n: _job(n) for n in names})
 
 
 def load(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _libs[name]
-    return lib
+    return load_library(name, *_job(name))
 
 
 def run_on(what: str, device, plain: Callable, kernel: Callable, *, inputs: Sequence):

@@ -4,7 +4,7 @@ reference's node), the node serves with ``jax``, ``repro`` and ``torch``
 unimportable, its ``--metrics-port`` answers with Prometheus text, a trace
 id set in the port's client reaches the node's scrape, a dead node scrapes
 as unreachable, and the port's metric catalog names what the reference's
-does, and the port's two cache-fetch counters and its decode-pool counter
+does, and the port's two cache-fetch counters and its two decode counters
 besides."""
 
 import os
@@ -28,9 +28,9 @@ BLOCKED = ("jax", "jaxlib", "repro", "torch")
 
 
 # ``CacheStats`` fields of the port's own cache hierarchy and the ``StoreStats``
-# field of its own store, bridged like the rest
+# fields of its own store, bridged like the rest
 PORT_GAUGES = ["repro_cache_fetch_skipped_blocks", "repro_cache_late_read_blocks",
-               "repro_store_pooled_decode_blocks"]
+               "repro_store_pooled_decode_blocks", "repro_store_native_decode_blocks"]
 
 
 def test_the_catalog_names_what_the_references_does():
